@@ -1,0 +1,25 @@
+"""Unified observability: structured tracing + metrics for every layer.
+
+The measurement stack is five layers deep (plans -> WaveScheduler ->
+MeasurementEngine -> BatchSimMachine -> device mesh -> service), and each
+layer grew its own ad-hoc stats dict.  This package is the one substrate
+they all report through:
+
+* :mod:`repro_torch.obs.tracer` — thread-safe hierarchical spans with monotonic
+  clocks and a module-level no-op fast path (near-zero overhead when
+  disabled; enable with ``REPRO_TRACE=1`` or ``Tracer(enabled=True)``).
+* :mod:`repro_torch.obs.metrics` — a counter/gauge/histogram registry with one
+  ``snapshot()`` shape, absorbing the legacy stats dicts
+  (``EngineStats.as_dict()``, ``device_stats()``, the server's per-endpoint
+  summaries) behind canonical dotted instrument names.
+
+Span names and metric alias tables are those of the reference package's
+``repro.obs``.  Trace export (Chrome trace-event JSON) and the per-wave
+report are not ported yet.
+"""
+from repro_torch.obs.tracer import (NULL_SPAN, Tracer, counter, enabled,
+                                          get_tracer, instant, set_tracer, span,
+                                          wait_lock)
+
+__all__ = ["Tracer", "span", "instant", "counter", "wait_lock", "enabled",
+           "get_tracer", "set_tracer", "NULL_SPAN"]

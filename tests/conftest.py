@@ -55,3 +55,8 @@ def skl_model(skl_machine, skl_blocking):
 
     return characterize(skl_machine, TEST_ISA, CHAR_SUBSET,
                         blocking=skl_blocking)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips without one")
