@@ -150,20 +150,24 @@ def phase_kernel_checks():
     from repro_torch.core.uarch import SIM_SKL, SIM_UARCHES
     from repro_torch.kernels import wave_dispatch as wd
 
-    def check(label, ua, isa, codes, oracle=True):
+    def check(label, ua, isa, codes):
+        """Run the wave through ``run_batch``; hold every launch's own
+        inputs against the plain version, and the wave's results against
+        the scalar oracle."""
         m = BatchSimMachine(ua, isa, backend="cuda", min_lanes=1)
+        m.launched_args = []
+        results = m.run_batch(codes)
         shapes = []
-        for args in m.kernel_inputs(codes):
+        for args in m.launched_args:
             kernel_vs_plain(args)
             shapes.append(tuple(args[5].shape))
-        if oracle:       # and the whole wave against the scalar oracle
-            scalar = SimMachine(ua, isa)
-            for got, code in zip(m.run_batch(codes), codes):
-                ref = scalar.run(list(code))
-                require((got.cycles, got.port_uops) ==
-                        (ref.cycles, ref.port_uops),
-                        f"{label}: kernel result differs from the scalar "
-                        f"oracle on {code[:3]}")
+        scalar = SimMachine(ua, isa)
+        for got, code in zip(results, codes):
+            ref = scalar.run(list(code))
+            require((got.cycles, got.port_uops) ==
+                    (ref.cycles, ref.port_uops),
+                    f"{label}: kernel result differs from the scalar "
+                    f"oracle on {code[:3]}")
         log(f"[kernel] {label}: equal on {len(shapes)} chunk(s) "
             f"(S, E, R) = {shapes}")
 
@@ -195,13 +199,8 @@ def phase_kernel_checks():
     wave_b = wave_a[:1] + [[Instr("BSWAP_R64", {"op1": f"Q{lane}_{j}"})
                             for j in range(24)] for lane in range(5)]
     m = BatchSimMachine(SIM_SKL, TEST_ISA, backend="cuda", min_lanes=1)
-    for _ in m.kernel_inputs(wave_a):
-        pass
-    (args,) = list(m.kernel_inputs(wave_b))
-    ring = list(m._device._rings.values())
-    require(len(ring) == 1 and len(ring[0]) == 1,
-            "wave B did not reuse wave A's buffer slot")
-    kernel_vs_plain(args)
+    m.run_batch(wave_a)
+    m.launched_args = []
     scalar = SimMachine(SIM_SKL, TEST_ISA)
     for _ in range(2):
         for got, code in zip(m.run_batch(wave_b), wave_b):
@@ -209,6 +208,12 @@ def phase_kernel_checks():
             require((got.cycles, got.port_uops) ==
                     (ref.cycles, ref.port_uops),
                     "reused buffer: result differs from the scalar oracle")
+    ring = list(m._device._rings.values())
+    require(len(ring) == 1 and len(ring[0]) == 1
+            and len(m.launched_args) == 2,
+            "wave B did not reuse wave A's buffer slot")
+    args = m.launched_args[0]
+    kernel_vs_plain(args)
     log("[kernel] reused buffer with stale rows and narrower R: equal")
     # stale garbage in every invalid row must be gated off
     g = torch.Generator(device="cuda").manual_seed(13)
@@ -236,26 +241,15 @@ def phase_main_path():
     from repro_torch.core.uarch import SIM_UARCHES
     from repro_torch.kernels import wave_dispatch as wd
 
-    class Recording(SimMachine):
-        """A port SimMachine that keeps every wave the engine submits, so
-        the main path's own chunks can be checked afterwards."""
-
-        def __init__(self, *a, **kw):
-            super().__init__(*a, **kw)
-            self.waves = []
-
-        def run_batch(self, codes, kernel_lock=None):
-            codes = list(codes)
-            self.waves.append(codes)
-            return super().run_batch(codes, kernel_lock=kernel_lock)
-
     def export(res, name):
         model = res.models[name]
         model.run_seconds = 0.0
         return model_io.to_xml(model, TEST_ISA), model_io.to_json(model)
 
-    machines = [Recording(ua, TEST_ISA, backend="cuda")
+    machines = [SimMachine(ua, TEST_ISA, backend="cuda")
                 for ua in SIM_UARCHES.values()]
+    for m in machines:    # keep every launch's inputs for phase_main_chunks
+        m.launched_args = []
     torch.cuda.synchronize()
     wd.launches = 0
     t0 = time.perf_counter()
@@ -299,18 +293,27 @@ def phase_main_path():
 
 
 def _bound_ms(args):
-    """Least time for one call: each input read once and each output
-    written once over HBM, or the int32 operations the valid rows need
-    over the card's 32-bit scalar rate; the larger of the two."""
+    """Least time for one call on these inputs: the bytes the function
+    needs over HBM, or the int32 operations it needs over the card's
+    32-bit scalar rate; the larger of the two.  The work depends on the
+    data, so only what this chunk needs is counted: the ``valid`` plane,
+    ``done`` and ``counts`` and the LUT in full; issue/mask/lat/blk once
+    per valid row; a prod/delta pair only where a valid row really reads
+    (prod >= 0 or delta != 0), not the bucket's padded R columns; and per
+    valid row only the ports its mask allows."""
     issue, mask, lat, blk, valid, prod, delta, lut = args
-    S, E, R = prod.shape
+    S, E = issue.shape
     M, P = lut.shape
-    nbytes = sum(t.numel() * t.element_size() for t in args) \
-        + S * E * 4 + E * P * 4
     rows = int(valid.sum())
-    # per valid row: R adds + R maxes (reads), 1 max (issue), per port a
-    # max and two compares (dispatch), 2 adds and a count increment
-    ops = rows * (2 * R + 1 + 3 * P + 3)
+    reads = int((((prod >= 0) | (delta != 0)) & valid[..., None]).sum())
+    allowed = int(lut.sum(1, dtype=torch.int64)[mask.long()][valid].sum())
+    nbytes = (S * E + M * P            # valid, LUT (bool)
+              + 4 * (S * E + E * P)    # done, counts
+              + 16 * rows + 8 * reads)
+    # an add and a max per read, a max with issue per row, a max and two
+    # compares per allowed port, and 3 per row to retire (done, port_free,
+    # count)
+    ops = 2 * reads + 4 * rows + 3 * allowed
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / SCALAR_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -331,29 +334,26 @@ def _time_ms(fn, args, reps):
 
 
 def phase_main_chunks(machines, launches):
-    """Every chunk the main path launched, re-packed from the recorded
-    waves, held against the plain version and timed once (their sum is
-    the kernel's device time over the campaign); the largest chunk (by
-    S x E) and the longest (by S) timed over repeated launches."""
-    from repro_torch.core.batch_sim import BatchSimMachine
+    """Every chunk the main path launched, on the very inputs it was
+    launched with, held against the plain version and timed once (their
+    sum is the kernel's device time over the campaign); the largest chunk
+    (by S x E) and the longest (by S) timed over repeated launches."""
     from repro_torch.kernels import wave_dispatch as wd
     largest = longest = None
     n, max_err, total_ms = 0, 0, 0.0
     for m in machines:
-        bm = BatchSimMachine(m.uarch, m.isa, backend="cuda")
-        for wave in m.waves:
-            for args in bm.kernel_inputs(wave):
-                max_err = max(max_err, kernel_vs_plain(args))
-                total_ms += _time_ms(wd.wave_dispatch, args, reps=1)
-                n += 1
-                S, E = args[0].shape
-                if largest is None or S * E > largest[0]:
-                    largest = (S * E, args, m.name)
-                if longest is None or S > longest[0]:
-                    longest = (S, args, m.name)
+        for args in m.launched_args:
+            max_err = max(max_err, kernel_vs_plain(args))
+            total_ms += _time_ms(wd.wave_dispatch, args, reps=1)
+            n += 1
+            S, E = args[0].shape
+            if largest is None or S * E > largest[0]:
+                largest = (S * E, args, m.name)
+            if longest is None or S > longest[0]:
+                longest = (S, args, m.name)
     log(f"[kernel] all {n} main-path chunks: kernel equal to the plain "
         f"version; kernel device time summed over them {total_ms:.3f} ms")
-    require(n == launches, f"{n} chunks re-packed vs {launches} launches")
+    require(n == launches, f"{n} chunks kept vs {launches} launches")
     out = {}
     for label, (_, args, name) in (("largest", largest),
                                    ("longest", longest)):
@@ -363,9 +363,9 @@ def phase_main_chunks(machines, launches):
         plain_ms = _time_ms(wd.wave_dispatch_ref, args, reps=1)
         bound_ms, bound_by = _bound_ms(args)
         log(f"[kernel] {label} main-path chunk ({name}, S={S} E={E} R={R} "
-            f"M={M} P={P}, {int(args[4].sum())} valid rows): kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound_ms:.6f} "
-            f"ms ({bound_by})")
+            f"M={M} P={P}, {int(args[4].sum())} of {S * E} rows valid): "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
+            f"{bound_ms:.6f} ms ({bound_by})")
         out[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                       "bound_by": bound_by, "shape": [S, E, R, M, P]}
     out["max_abs_err"] = max_err

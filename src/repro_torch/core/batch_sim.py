@@ -250,6 +250,9 @@ class BatchSimMachine:
         self._lower_max = lower_cache_entries
         self.lowering_stats = {"hits": 0, "misses": 0, "evictions": 0}
         self._device = None             # lazy _DeviceExec
+        # a list to append every launch's device inputs to (the argument
+        # tuple of each kernel call, as launched), or None to keep nothing
+        self.launched_args: list | None = None
         # guards the machine's shared mutable host state (lowering-cache
         # LRU, recipe memo, lazy device/scalar init) across concurrent
         # run_batch callers; slot leasing has its own lock in _DeviceExec
@@ -342,29 +345,6 @@ class BatchSimMachine:
         batched = [c for c in chunks if len(c) >= self.min_lanes]
         thin = [i for c in chunks if len(c) < self.min_lanes for i in c]
         return batched, thin
-
-    def kernel_inputs(self, codes):
-        """The device inputs of every batched chunk of a wave, lowered,
-        packed and uploaded exactly as :meth:`run_batch` launches them: a
-        generator of argument tuples for
-        :func:`~repro_torch.kernels.wave_dispatch.wave_dispatch`.  For
-        holding the kernel against its plain version on real waves; it
-        launches nothing.  Each chunk's bucket buffer is released for reuse
-        once the next chunk is asked for."""
-        codes = [list(c) for c in codes]
-        batched, _ = self._chunks(codes)
-        if not batched:
-            return
-        progs = self._lower_wave(codes, batched)
-        dev = self._device_exec()
-        for c in batched:
-            if max(progs[i].n_rows for i in c) == 0:
-                continue
-            pk, slot = self._pack_leased(dev, c, progs)
-            try:
-                yield dev.upload(pk)
-            finally:
-                slot.release()
 
     def _ensure_scalar(self):
         with self._host_lock:
@@ -888,7 +868,7 @@ class BatchSimMachine:
                     pk, slot = self._pack_leased(dev, c, progs)
                 try:
                     with obs.span("wave.dispatch", lanes=len(c)):
-                        launched = dev.dispatch(pk)
+                        launched = dev.dispatch(pk, self.launched_args)
                 except BaseException:
                     slot.release()
                     raise
@@ -993,19 +973,22 @@ class _DeviceExec:
         """The chunk's kernel inputs on the device, in the kernel's
         row-major ``(S, E)`` / ``(S, E, R)`` layout: one blocking copy per
         buffer (the host buffer is free for reuse once it returns), one
-        transpose on the device."""
+        transpose on the device into fresh tensors that no later chunk
+        overwrites."""
         def up(a):
             t = torch.from_numpy(a).to(self.device)
             return t.transpose(0, 1).contiguous()
         return (up(pk.issue), up(pk.mask), up(pk.lat), up(pk.blk),
                 up(pk.valid), up(pk.prod), up(pk.delta), self.lut)
 
-    def dispatch(self, pk: _ChunkPack) -> "_Launched":
+    def dispatch(self, pk: _ChunkPack, record: list | None = None
+                 ) -> "_Launched":
         """Upload one packed chunk and launch its kernel call; the returned
         :class:`_Launched` copies ``(done, counts)`` back to the host on
-        ``result()``.  Holds the executor's per-device lock, so machines
-        sharing the device serialize their launches and machines on other
-        devices do not."""
+        ``result()``.  The launch's argument tuple is appended to
+        ``record`` when one is given.  Holds the executor's per-device
+        lock, so machines sharing the device serialize their launches and
+        machines on other devices do not."""
         if faults.active():
             faults.check("device.dispatch", backend=self.kind)
         if self.kind == "cuda":
@@ -1022,6 +1005,8 @@ class _DeviceExec:
             with obs.span("wave.kernel", track=f"device:{self.key}",
                           lanes=pk.E, steps=S):
                 done, counts = run(*args)
+        if record is not None:
+            record.append(args)
         self.buckets.add((S, E, R))
         self.kernel_calls += 1
         self.lanes += pk.E

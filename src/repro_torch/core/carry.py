@@ -8,8 +8,7 @@ and :func:`isa_from_plain` rebuild them from plain data — the builtins
 (and numpy scalars or arrays) that ``dataclasses.asdict`` gives for a uarch
 and for each instruction spec, from this package or from any other with
 the same field names — so any machine, including the reference package's,
-can be handed to the port.  :func:`uarch_to_plain` / :func:`isa_to_plain`
-are the inverse.
+can be handed to the port.
 """
 from __future__ import annotations
 
@@ -75,10 +74,3 @@ def isa_from_plain(specs) -> ISA:
         **_scalars(InstrSpec, s, skip=("name", "mnemonic", "operands")))
         for s in specs)
 
-
-def uarch_to_plain(ua) -> dict:
-    return dataclasses.asdict(ua)
-
-
-def isa_to_plain(isa) -> list:
-    return [dataclasses.asdict(s) for s in isa]

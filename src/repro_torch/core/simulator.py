@@ -99,6 +99,9 @@ class SimMachine:
         self.devices = None       # campaign placement (set_devices)
         self._batch = None        # lazy BatchSimMachine
         self._table_index = None  # shared UopTableIndex (set by Campaign)
+        # handed to the batched backend: a list that keeps every kernel
+        # launch's device inputs, or None (see BatchSimMachine)
+        self.launched_args: list | None = None
 
     # ------------------------------------------------------------------
     def set_table_index(self, index) -> None:
@@ -168,6 +171,7 @@ class SimMachine:
                 table_index=self._table_index, min_lanes=min_lanes)
             if self.devices is not None:
                 batch.set_devices(self.devices)
+            batch.launched_args = self.launched_args
             self._batch = batch
         return self._batch.run_batch(codes, kernel_lock=kernel_lock)
 

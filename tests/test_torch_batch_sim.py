@@ -366,18 +366,34 @@ def test_simmachine_routes_waves_to_the_port_backend():
     assert got == _counters(RSim(ra, ri).run_batch(codes))
 
 
+def test_simmachine_hands_launched_args_to_its_backend():
+    _, _, pa, pi = _sim("sim_hsw")
+    codes = _port_codes(_interesting_wave(r_isa.TEST_ISA)[:10])
+    m = PSim(pa, pi, backend="torch", device="cpu", min_lanes=1)
+    m.launched_args = kept = []
+    m.run_batch(codes)
+    assert m._batch.launched_args is kept
+    assert len(kept) == m.device_stats()["kernel_calls"] > 0
+
+
 def test_kernel_inputs_are_the_launched_chunks():
-    """``kernel_inputs`` hands out the chunks ``run_batch`` launches, in
-    the kernel's layout; on CPU tensors the wrapper runs the plain
-    version on them and counts no launch."""
+    """``launched_args`` keeps the argument tuple of every chunk
+    ``run_batch`` launches, in the kernel's layout, and no later chunk
+    overwrites them; on CPU tensors the wrapper runs the plain version on
+    them and counts no launch."""
     _, _, pa, pi = _sim("sim_skl")
     codes = _port_codes(_interesting_wave(r_isa.TEST_ISA))
     m = _port_machine(pa, pi)
-    m.run_batch(codes)
-    chunks = list(m.kernel_inputs(codes))
+    m.launched_args = []
+    got = m.run_batch(codes)
+    chunks = m.launched_args
+    assert len(chunks) == m.device_stats()["kernel_calls"] > 1
+    snapshot = [tuple(a.clone() for a in args) for args in chunks]
+    assert _counters(m.run_batch(codes)) == _counters(got)
     assert len(chunks) == m.device_stats()["kernel_calls"]
     before = wd.launches
-    for args in chunks:
+    for args, kept in zip(chunks, snapshot):
+        assert all(torch.equal(a, b) for a, b in zip(args, kept))
         issue, valid, prod, lut = args[0], args[4], args[5], args[7]
         assert issue.dtype == torch.int32 and issue.is_contiguous()
         assert prod.shape[:2] == issue.shape == valid.shape

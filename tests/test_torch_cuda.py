@@ -51,14 +51,16 @@ def test_kernel_equals_plain_version_and_reference(card, case):
     ra, ri, pa, pi = pair
     m = p_bs.BatchSimMachine(pa, pi, backend="cuda", device=card,
                              min_lanes=1)
+    m.launched_args = []
     before = wd.launches
     got = m.run_batch(_port_codes(codes))
     assert wd.launches - before == m.device_stats()["kernel_calls"] > 0
+    assert len(m.launched_args) == m.device_stats()["kernel_calls"]
     ref = r_bs.BatchSimMachine(ra, ri, backend="numpy",
                                min_lanes=1).run_batch(codes)
     assert [(c.cycles, c.port_uops) for c in got] == \
         [(c.cycles, c.port_uops) for c in ref]
-    for args in m.kernel_inputs(_port_codes(codes)):
+    for args in m.launched_args:
         assert args[0].is_cuda
         done, counts = wd.wave_dispatch(*args)
         ref_done, ref_counts = wd.wave_dispatch_ref(*args)
