@@ -2,32 +2,46 @@
 
     python3 chip_smoke.py
 
-Builds the wave-dispatch kernel from ``src/repro_torch/csrc`` with nvcc,
-holds it bit for bit against its plain PyTorch version on the card, then
-drives the port's main path — a ``Campaign`` over the full ``TEST_ISA`` on
-all three simulated uarches with the ``cuda`` backend, exported with
-``model_io`` — and checks that its XML and JSON are byte-identical to the
-same campaign on the ``torch`` backend on the CPU.  Every phase prints a
-line; any failure exits non-zero and prints no result.  The last two lines
-are the kernel report and the device line, both JSON.
+Builds the port's two kernel libraries from ``src/repro_torch/csrc`` with
+nvcc, in parallel, and drives its two paths on the card:
+
+* **characterize -> export.**  The wave-dispatch kernel is held bit for
+  bit against its plain PyTorch version on the card; then a ``Campaign``
+  over the full ``TEST_ISA`` on all three simulated uarches runs with the
+  ``cuda`` backend, exported with ``model_io``, and its XML and JSON must be
+  byte-identical to the same campaign on the ``torch`` backend on the CPU.
+* **hardware characterization.**  The four unit blockers (tensor cores,
+  FP32 pipe, MUFU, HBM) are held against their plain versions on the card
+  at the reference's default sizes and at sizes that fill the card; then
+  ``characterize_corpus`` measures the full op corpus (Algorithm 2 in wall
+  clock) and ``profile_kernel`` runs each blocker, and a 512x512 f32
+  matmul, beside all four blockers.
+
+Every phase prints a line; any failure exits non-zero and prints no
+result.  The last three lines are the card's name and power limit, the
+kernel report and the device line, both JSON.
 
 Imports nothing of jax and nothing of the reference package ``repro``.
 """
+import functools
 import json
+import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and the non-tensor-core
-# 32-bit rate, the one that applies to the kernel's int32 scalar arithmetic
-HBM_BYTES_PER_S = 3.35e12
-SCALAR_OPS_PER_S = 67e12
+from repro_torch.core.uarch import H100_SXM  # noqa: E402
+
+# f32 products stay f32 on the card (PyTorch's default, stated and required)
+torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def log(*parts):
@@ -54,17 +68,57 @@ def phase_device():
     return smi
 
 
+def _sass_counts(lib_path):
+    """Per kernel function of the library: how many HMMA, FFMA and
+    MUFU.RSQ instructions its SASS holds (None without cuobjdump)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = {"HMMA": 0, "FFMA": 0, "MUFU.RSQ": 0}
+        elif fn is not None:
+            for op in counts[fn]:
+                counts[fn][op] += line.count(op)
+    return counts
+
+
 def phase_build():
+    from repro_torch.kernels import microbench as mb
     from repro_torch.kernels import wave_dispatch as wd
     t0 = time.perf_counter()
-    wd.load_library()
-    nvcc = "cached" if wd.build_seconds is None else \
-        f"nvcc {wd.build_seconds:.2f} s"
-    log(f"[build] wave_dispatch built and loaded in "
-        f"{time.perf_counter() - t0:.2f} s ({nvcc})")
-    for line in wd.build_log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"[build] {line.strip()}")
+    libs = {"wave_dispatch": wd.LIBRARY, "microbench": mb.LIBRARY}
+    with ThreadPoolExecutor(len(libs)) as pool:   # one nvcc per source
+        futures = [pool.submit(lib.load) for lib in libs.values()]
+        for f in futures:
+            f.result()
+    log(f"[build] {', '.join(libs)} built and loaded in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for name, lib in libs.items():
+        nvcc = "cached" if lib.build_seconds is None else \
+            f"nvcc {lib.build_seconds:.2f} s"
+        log(f"[build] {name}: {lib.path.name} ({nvcc})")
+        for line in lib.build_log.splitlines():
+            if ("entry function" in line or "registers" in line
+                    or "spill" in line):
+                log(f"[build] {line.strip()}")
+    counts = _sass_counts(mb.LIBRARY.path)
+    if counts is None:
+        log("[build] cuobjdump not found: SASS not inspected")
+        return
+    need = {"mxu_chain_kernel": "HMMA", "vpu_chain_kernel": "FFMA",
+            "sfu_chain_kernel": "MUFU.RSQ"}
+    for kernel, op in need.items():
+        fns = [f for f in counts if kernel in f]
+        require(len(fns) == 1, f"{kernel} not found in the SASS")
+        c = counts[fns[0]]
+        log(f"[build] SASS {kernel}: " + ", ".join(
+            f"{k} {v}" for k, v in c.items()))
+        require(c[op] > 0, f"{kernel}'s SASS has no {op}")
 
 
 def kernel_vs_plain(args):
@@ -314,8 +368,15 @@ def _bound_ms(args):
     # compares per allowed port, and 3 per row to retire (done, port_free,
     # count)
     ops = 2 * reads + 4 * rows + 3 * allowed
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    # the non-tensor-core 32-bit rate applies to int32 scalar arithmetic
+    return _bound(nbytes, ops, H100_SXM["peak_fp32_flops"])
+
+
+def _bound(nbytes, ops, ops_per_s):
+    """The least time (ms) for ``nbytes`` over HBM and ``ops`` at
+    ``ops_per_s``: the larger of the two, and which one it is."""
+    t_bytes = nbytes / H100_SXM["hbm_bw"] * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -423,6 +484,260 @@ def phase_breakdown():
         "device busy share not measured")
 
 
+# --------------------------------------------------------- unit blockers
+UNITS = ("MXU", "VPU", "SFU", "LSU")
+# rows of 128 f32 that fill the card: 132 SMs x 2,048 resident threads
+FILL_ROWS = H100_SXM["sms"] * 2048 // 128
+# rows of 128 f32 whose buffer is past the L2 cache: 2**17 rows, 64 MiB
+LSU_FILL_ROWS = 1 << 17
+require(LSU_FILL_ROWS * 128 * 4 > H100_SXM["l2_bytes"], "LSU rows fit L2")
+SIZES = {
+    # the reference's defaults
+    "default": {"MXU": {"iters": 64, "tile": 128},
+                "VPU": {"iters": 256, "rows": 8},
+                "SFU": {"iters": 128, "rows": 8}, "LSU": {"rows": 4096}},
+    # rows that fill the card (the MXU chain is one CTA at any size)
+    "fill": {"VPU": {"iters": 256, "rows": FILL_ROWS},
+             "SFU": {"iters": 128, "rows": FILL_ROWS},
+             "LSU": {"rows": LSU_FILL_ROWS}},
+    # what profile_kernel runs: the card-filling rows with chains long
+    # enough (~0.5 ms a call, predicted) that each call's host launch cost
+    # does not hide the device work
+    "profile": {"MXU": {"iters": 64, "tile": 128},
+                "VPU": {"iters": 1 << 16, "rows": FILL_ROWS},
+                "SFU": {"iters": 1 << 13, "rows": FILL_ROWS},
+                "LSU": {"rows": 1 << 20}},
+}
+MXU_ORTH_ATOL = 1e-4
+
+
+# The stated tolerances (relative; LSU exact).  MXU 1e-5: 3xTF32 on the
+# tensor cores against f32 (3.55e-7 measured on the H100).  VPU 1e-6: one
+# fused rounding a step against two, on one input value, so the result is
+# fixed; 1.18e-7 measured on the H100 at 256 steps and 1.16e-7 at 65,536,
+# and one step more or fewer moves the result by far more (checked in
+# phase_blockers).  SFU 1e-6: the chain converges to a fixed point.
+RTOL = {"MXU": 1e-5, "VPU": 1e-6, "SFU": 1e-6, "LSU": 0.0}
+
+
+def _library(unit):
+    """One PyTorch call that computes the unit's inner function on the same
+    inputs, or None: MXU ``multi_dot([a, b, ..., b])`` (the whole chain in
+    one call), LSU ``x + 1.0``; no one call runs the VPU and SFU chains of
+    dependent elementwise steps."""
+    if unit == "MXU":
+        return lambda a, b, iters: torch.linalg.multi_dot([a] + [b] * iters)
+    if unit == "LSU":
+        return lambda x: torch.add(x, 1.0)
+    return None
+
+
+def _bound_blocker(unit, kw):
+    """Least time (ms) of one blocker call on the card: each input read
+    once, the output written once, over HBM; the operations over the peak
+    of the unit that does them (MXU: 2 * tile**3 * iters FLOP at the TF32
+    tensor-core peak; VPU: 2 FLOP a step at the FP32 peak; SFU: one rsqrt a
+    step at the MUFU rate; LSU: one add an element at the FP32 peak)."""
+    if unit == "MXU":
+        t, it = kw["tile"], kw["iters"]
+        return _bound(3 * t * t * 4, 2 * t ** 3 * it,
+                      H100_SXM["peak_tf32_flops"])
+    n = kw["rows"] * 128
+    if unit == "VPU":
+        return _bound(8 * n, 2 * n * kw["iters"], H100_SXM["peak_fp32_flops"])
+    if unit == "SFU":
+        return _bound(8 * n, n * kw["iters"], H100_SXM["peak_mufu_ops"])
+    return _bound(8 * n, n, H100_SXM["peak_fp32_flops"])
+
+
+def _errors(got, want):
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    rel = diff / want.abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return float(diff.max()), float(rel.max())
+
+
+def phase_blockers():
+    """Each blocker's kernel against its plain version on the card, on the
+    public blocker's inputs at every size of ``SIZES`` (and the library
+    call, where there is one, against the plain version too), and the MXU
+    kernel on a random orthogonal, non-symmetric b.  Returns the
+    default-size errors."""
+    from repro_torch.kernels import microbench as mb
+    require(torch.backends.cuda.matmul.allow_tf32 is False,
+            "allow_tf32 must be False: f32 products stay f32")
+    errs = {}
+    for label, sizes in SIZES.items():
+        for unit, kw in sizes.items():
+            if label != "default" and kw == SIZES["default"][unit]:
+                continue
+            fn, ref = mb.INNER[unit]
+            args = mb.blocker_inputs(unit, "cuda", **kw)
+            got = fn(*args)
+            require(got.is_cuda and bool(torch.isfinite(got).all()),
+                    f"{unit} {kw}: kernel output not finite")
+            want = ref(*args)
+            abs_err, rel_err = _errors(got, want)
+            tol = RTOL[unit]
+            ok = rel_err <= tol if tol else abs_err == 0.0
+            log(f"[blockers] {unit} {label} {kw}: kernel vs plain on the "
+                f"card max abs {abs_err:.3e}, max rel {rel_err:.3e} "
+                f"(tolerance {'rel %.1e' % tol if tol else 'exact'})")
+            require(ok, f"{unit} {kw}: kernel disagrees with its plain "
+                    "version")
+            if unit == "VPU":
+                # a kernel one step short or long must fail the check
+                step = float(((want * 1.000001 + 0.5 - want).abs()
+                              / want.abs()).min())
+                log(f"[blockers] VPU {label}: one more step moves the "
+                    f"plain result by rel {step:.3e} at least")
+                require(step > 2 * tol, "the VPU tolerance cannot see a "
+                        "missing step")
+            lib = _library(unit)
+            if lib is not None:
+                _, lib_rel = _errors(lib(*args), want)
+                require(lib_rel <= tol if tol else lib_rel == 0.0,
+                        f"{unit} {kw}: the library call computes another "
+                        f"function (rel {lib_rel:.3e})")
+            if label == "default":
+                errs[unit] = abs_err
+    rng = np.random.default_rng(0)
+    a = rng.standard_normal((128, 128)).astype(np.float32)
+    q = np.linalg.qr(rng.standard_normal((128, 128)))[0].astype(np.float32)
+    require(float(np.abs(q - q.T).max()) > 0.1, "b is symmetric")
+    a, q = torch.from_numpy(a).cuda(), torch.from_numpy(q).cuda()
+    abs_err, _ = _errors(mb.mxu_chain(a, q, 64), mb.mxu_chain_ref(a, q, 64))
+    log(f"[blockers] MXU on a random orthogonal non-symmetric b (seed 0), "
+        f"64 iters: max abs {abs_err:.3e} (tolerance abs "
+        f"{MXU_ORTH_ATOL:.0e})")
+    require(abs_err <= MXU_ORTH_ATOL, "MXU kernel disagrees on random b")
+    return errs
+
+
+def phase_hardware():
+    """The hardware-characterization path on the card: Algorithm 2 over the
+    full op corpus, then profile_kernel of each blocker and of
+    matmul_512x512_f32 against all four.  The blockers' launch counts are
+    set to 0 just before and read just after."""
+    from repro_torch.core.hardware import characterize_corpus
+    from repro_torch.core.kernel_bench import profile_kernel
+    from repro_torch.corpus import build_jit_corpus
+    from repro_torch.kernels import microbench as mb
+    require(torch.backends.cuda.matmul.allow_tf32 is False,
+            "allow_tf32 must be False: f32 products stay f32")
+    corpus = build_jit_corpus()
+    cpu = build_jit_corpus(device="cpu")
+    for name, (f, x, _) in corpus.items():
+        got = f(x).cpu().float()
+        want = cpu[name][0](cpu[name][1]).float()
+        rtol = 1e-5 if x.dtype == torch.float32 else 2e-2
+        require(got.shape == want.shape and torch.allclose(
+            got, want, rtol=rtol, atol=1e-6), f"{name}: card != CPU")
+    log(f"[hardware] {len(corpus)} corpus ops equal on the card and the CPU "
+        "(rtol 1e-5 f32, 2e-2 bf16)")
+    blockers = {u: functools.partial(mb.BLOCKERS[u], **SIZES["profile"][u])
+                for u in UNITS}
+    torch.cuda.synchronize()
+    mb.launches.update(dict.fromkeys(mb.launches, 0))
+    t0 = time.perf_counter()
+    res = characterize_corpus(corpus)
+    t_corpus = time.perf_counter() - t0
+    profiles = {u: profile_kernel(f"{u} blocker", blk, blockers)
+                for u, blk in blockers.items()}
+    f, x, _ = corpus["matmul_512x512_f32"]
+    profiles["matmul_512x512_f32"] = profile_kernel(
+        "matmul_512x512_f32", lambda: f(x), blockers)
+    torch.cuda.synchronize()
+    launches = dict(mb.launches)
+    log(f"[hardware] characterize_corpus over {len(res)} ops in "
+        f"{t_corpus:.2f} s wall; op: latency us, throughput us, GFLOP/s")
+    for name, m in res.items():
+        require(m.latency_ns >= 0 and m.throughput_ns >= 0, name)
+        log(f"[hardware]   {name:20s} {m.latency_ns / 1e3:9.3f} "
+            f"{m.throughput_ns / 1e3:9.3f} {m.achieved_gflops:10.2f}")
+    log("[hardware] overlap(target, blocker) with blockers "
+        + json.dumps(SIZES["profile"]))
+    for name, prof in profiles.items():
+        require(list(prof.overlap) == list(UNITS) and all(
+            np.isfinite(v) for v in prof.overlap.values()), name)
+        log(f"[hardware]   {name:20s} alone {prof.alone_ns / 1e3:9.1f} us; "
+            + ", ".join(f"{u} {v:+.3f}" for u, v in prof.overlap.items()))
+    log(f"[hardware] blocker launches in this phase: {launches}")
+    for u in UNITS:
+        require(launches[u] > 0, f"the hardware path never launched {u}")
+    return launches, {k: {"alone_ns": p.alone_ns, "overlap": p.overlap}
+                      for k, p in profiles.items()}
+
+
+# a spin of ~0.1 s at the H100's ~1.98 GHz: longer than the host takes to
+# queue 200 wrapper calls (~0.03 ms each)
+SPIN_CYCLES = 200_000_000
+
+
+def _device_ms(fn, args, reps, bound_ms):
+    """The card's time per launch with the launches back to back: they are
+    queued behind a spin kernel (``torch.cuda._sleep``), so the card runs
+    them with no host gap between them, and CUDA events around them time
+    the card alone.  Fails if the spin ended before the host had queued
+    them all, or if the time is below the bound."""
+    fn(*args)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn(*args)
+    end.record()
+    require(not start.query(), "the spin ended before the host had queued "
+            f"{reps} launches: the time would include host gaps")
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    require(ms >= bound_ms, f"{fn.__name__}: {ms:.6f} ms a launch, below "
+            f"its bound {bound_ms:.6f} ms")
+    return ms
+
+
+def phase_blocker_timing():
+    """Each blocker's kernel, plain version and (MXU, LSU) library call
+    timed with CUDA events on the same card inputs, at the default and the
+    card-filling sizes, beside its bound; and the card's time per launch
+    with the launches back to back (at small sizes the event time of a call
+    is the wrapper's host cost)."""
+    from repro_torch.kernels import microbench as mb
+    out = {}
+    reps = {"MXU": 20, "VPU": 200, "SFU": 200, "LSU": 200}
+    for unit in UNITS:
+        fn, ref = mb.INNER[unit]
+        lib = _library(unit)
+        row = {}
+        for label in ("default", "fill", "profile"):
+            kw = SIZES[label].get(unit)
+            if kw is None or (label != "default"
+                              and kw == SIZES["default"][unit]):
+                continue
+            args = mb.blocker_inputs(unit, "cuda", **kw)
+            n = reps[unit] if label == "default" else 5
+            ms = _time_ms(fn, args, reps=n)
+            plain_ms = _time_ms(ref, args, reps=1 if label == "profile"
+                                else 3)
+            library_ms = None if lib is None else _time_ms(lib, args, reps=n)
+            bound_ms, bound_by = _bound_blocker(unit, kw)
+            device_ms = _device_ms(fn, args, n, bound_ms)
+            row[label] = {"size": kw, "ms": ms, "device_ms": device_ms,
+                          "plain_ms": plain_ms, "library_ms": library_ms,
+                          "bound_ms": bound_ms, "bound_by": bound_by}
+            lib_text = "" if library_ms is None else \
+                f", library {library_ms:.5f} ms"
+            log(f"[timing] {unit} {label} {kw}: kernel {ms:.5f} ms a call "
+                f"(device {device_ms:.5f} ms a launch, {n} back to back), "
+                f"plain {plain_ms:.5f} ms{lib_text}, bound "
+                f"{bound_ms:.7f} ms ({bound_by}), kernel/bound "
+                f"{ms / bound_ms:.1f}")
+        out[unit] = row
+    return out
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -430,6 +745,9 @@ def main():
     machines, wall, launches = phase_main_path()
     timing = phase_main_chunks(machines, launches)
     phase_breakdown()
+    errs = phase_blockers()
+    blocker_launches, profiles = phase_hardware()
+    blocker_times = phase_blocker_timing()
     big = timing["largest"]
     report = {"kernels": [{
         "name": "wave_dispatch", "route": "cuda",
@@ -442,6 +760,22 @@ def main():
         "longest_chunk": timing["longest"],
         "campaign_kernel_ms": timing["campaign_kernel_ms"],
         "campaign_wall_s": wall}]}
+    replaces = {"MXU": 27, "VPU": 49, "SFU": 69, "LSU": 89}
+    for unit in UNITS:
+        d = blocker_times[unit]["default"]
+        report["kernels"].append({
+            "name": f"{unit.lower()}_blocker", "route": "cuda",
+            "source": "src/repro_torch/csrc/microbench.cu",
+            "replaces": f"src/repro/kernels/microbench.py:{replaces[unit]}",
+            "launches": blocker_launches[unit], "max_abs_err": errs[unit],
+            "ms": d["ms"], "plain_ms": d["plain_ms"],
+            "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
+            "library_ms": d["library_ms"], "device_ms": d["device_ms"],
+            "size": d["size"],
+            "other_sizes": {k: v for k, v in blocker_times[unit].items()
+                            if k != "default"},
+            "overlap_as_target": profiles[unit]})
+    report["profile_matmul_512x512_f32"] = profiles["matmul_512x512_f32"]
     print(smi, flush=True)
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -992,7 +992,7 @@ class _DeviceExec:
         if faults.active():
             faults.check("device.dispatch", backend=self.kind)
         if self.kind == "cuda":
-            _, loaded_now = wd.load_library()
+            _, loaded_now = wd.LIBRARY.load()
             if loaded_now:
                 self.compiles += 1
             run = wd.wave_dispatch

@@ -13,7 +13,9 @@ ported yet.
   tuple of ``torch.device``\\ s.  The default is the first card,
   ``cuda:0``.  Resolution never looks for a card and never substitutes
   the CPU: a machine placed on a device it cannot use fails when it
-  launches there.
+  launches there.  :func:`resolve_device` picks the one device of a
+  single-device entry point and raises when a card is asked for and the
+  host has none.
 
 * **Per-device dispatch locks** — :func:`dispatch_lock` hands out one
   ``threading.Lock`` per device subset (keyed by the devices' names,
@@ -64,6 +66,17 @@ def resolve_devices(spec=None) -> tuple:
     if isinstance(spec, int):
         return resolve_devices(str(spec))
     return tuple(_torch_device(d) for d in spec)
+
+
+def resolve_device(device=None):
+    """One ``torch.device`` for an entry point that runs on a single
+    device: ``None`` is the first card, ``cuda:0``.  Asking for a CUDA
+    device on a host without one raises instead of running on the CPU."""
+    import torch  # noqa: PLC0415
+    d = _torch_device(DEFAULT_DEVICE if device is None else device)
+    if d.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{d} requested but no CUDA device is available")
+    return d
 
 
 def device_key(device) -> str:

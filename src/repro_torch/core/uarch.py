@@ -12,9 +12,9 @@ Two kinds live here:
    fallacy (§7.3.3), ADC = 1*p0156+1*p06 on Haswell (§5.1), PCMPGTQ as an
    undocumented zero idiom (§7.3.6).
 
-2. **TPU v5e hardware constants** for the roofline analysis, plus the
-   TPU-unit port model used by the Pallas kernel characterization
-   (`kernels/microbench.py` blocking kernels).
+2. **The H100 SXM's published peaks** (`H100_SXM`), the roofline constants
+   that bound the port's kernels, plus the simulated TPU-unit port model
+   (`TPU_PORTS`, names only) that ``make_tpu_sim`` builds on.
 """
 from __future__ import annotations
 
@@ -24,16 +24,30 @@ from dataclasses import dataclass, field, replace
 from repro_torch.core.isa import ISA, TEST_ISA
 
 # ---------------------------------------------------------------------------
-# TPU v5e roofline constants (per chip)
+# NVIDIA H100 SXM peaks: the roofline constants of the port
 # ---------------------------------------------------------------------------
-TPU_V5E = {
-    "name": "tpu_v5e",
-    "peak_bf16_flops": 197e12,   # FLOP/s
-    "hbm_bw": 819e9,             # B/s
-    "ici_bw": 50e9,              # B/s per link (~45 GB/s usable)
-    "hbm_bytes": 16e9,
-    "vmem_bytes": 128 * 2**20,
+# NVIDIA's H100 data sheet (SXM part, dense rates without sparsity, at the
+# 700 W power limit), and the CUDA programming guide's arithmetic-throughput
+# table for compute capability 9.0 (MUFU: 16 results per SM per clock).
+H100_SXM = {
+    "name": "h100_sxm",
+    "peak_bf16_flops": 989e12,       # FLOP/s, tensor cores
+    "peak_tf32_flops": 495e12,       # FLOP/s, tensor cores
+    "peak_fp32_flops": 67e12,        # FLOP/s outside the tensor cores (FFMA)
+    "hbm_bw": 3.35e12,               # B/s
+    "hbm_bytes": 80e9,
+    "l2_bytes": 50 * 2**20,          # 50 MB
+    "sms": 132,
+    "power_w": 700.0,
+    "mufu_per_sm_per_clock": 16,
 }
+# the SM clock implied by the FP32 peak (132 SMs x 128 FFMA x 2 FLOP a
+# clock): 1.98 GHz, NVIDIA's boost clock for the SXM part
+H100_SXM["sm_clock_hz"] = H100_SXM["peak_fp32_flops"] / (
+    H100_SXM["sms"] * 128 * 2)
+# rsqrt/exp/... results per second over the whole card
+H100_SXM["peak_mufu_ops"] = (H100_SXM["mufu_per_sm_per_clock"]
+                             * H100_SXM["sms"] * H100_SXM["sm_clock_hz"])
 
 # abstract TPU-core port model for kernel-level characterization
 TPU_PORTS = ("MXU", "VPU", "XLU", "LSU", "SFU")

@@ -19,23 +19,17 @@ Both take the wave row-major, one column per lane:
 and return ``done`` int32 ``(S, E)`` and ``counts`` int32 ``(E, P)``.
 
 The kernel is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface, at first use, into a build directory keyed by the
-source's hash (``build/repro_torch/`` at the checkout root, or
-``$REPRO_TORCH_BUILD_DIR``), and loaded with ``ctypes``.
+with a plain C interface at first use, and loaded with ``ctypes`` (see
+``kernels/_build.py``).
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 
 import torch
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "wave_dispatch.cu"
+from repro_torch.kernels._build import CudaLibrary
+
 MAX_PORTS = 32          # MAXP in the CUDA source
 MAX_MASKS = 12 * 1024   # port masks held in 48 KB of shared memory
 _INT32_MAX = 2**31 - 1
@@ -43,70 +37,18 @@ _INT32_MAX = 2**31 - 1
 # kernel launches made by wave_dispatch (the CUDA path only)
 launches = 0
 
-_LIB = None
-_LIB_LOCK = threading.Lock()
-build_log = ""          # nvcc's -Xptxas -v report of the last build
-build_seconds = None    # wall time of the last build in this process
+
+def _bind(lib):
+    fn = lib.wave_dispatch_launch
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.wave_dispatch_max_ports.restype = ctypes.c_int
+    if lib.wave_dispatch_max_ports() != MAX_PORTS:
+        raise RuntimeError("kernel library disagrees on MAXP")
 
 
-def build_dir() -> Path:
-    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
-    if env:
-        return Path(env)
-    return _SRC.parents[3] / "build" / "repro_torch"
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    cand = Path(home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the wave-dispatch kernel is built "
-                       "from source with the CUDA toolkit")
-
-
-def load_library():
-    """Build (if needed) and load the kernel library; returns
-    ``(lib, loaded_now)``.  The library is keyed by the source's hash, so
-    an edited source is rebuilt and a built one is reused."""
-    global _LIB, build_log, build_seconds
-    if _LIB is not None:
-        return _LIB, False
-    with _LIB_LOCK:
-        if _LIB is not None:
-            return _LIB, False
-        import time  # noqa: PLC0415
-        src = _SRC.read_bytes()
-        tag = hashlib.sha256(src).hexdigest()[:16]
-        out_dir = build_dir()
-        out_dir.mkdir(parents=True, exist_ok=True)
-        so = out_dir / f"wave_dispatch_{tag}.so"
-        if not so.exists():
-            tmp = out_dir / f".wave_dispatch_{tag}.{os.getpid()}.so"
-            cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                   "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                   "-Xptxas", "-v", "-o", str(tmp), str(_SRC)]
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            build_seconds = time.perf_counter() - t0
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{build_log}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
-        fn = lib.wave_dispatch_launch
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.wave_dispatch_max_ports.restype = ctypes.c_int
-        if lib.wave_dispatch_max_ports() != MAX_PORTS:
-            raise RuntimeError("kernel library disagrees on MAXP")
-        _LIB = lib
-        return lib, True
+LIBRARY = CudaLibrary("wave_dispatch.cu", _bind)
 
 
 def _check(issue, mask_id, lat, blk, valid, prod, delta, lut):
@@ -167,7 +109,7 @@ def wave_dispatch(issue, mask_id, lat, blk, valid, prod, delta, lut):
     if S == 0 or E == 0:
         counts.zero_()
         return done, counts
-    lib, _ = load_library()
+    lib, _ = LIBRARY.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.wave_dispatch_launch(

@@ -14,12 +14,15 @@ import torch
 
 import repro_torch
 from repro_torch.core.batch_sim import BatchSimMachine
+from repro_torch.core import hardware, kernel_bench
 from repro_torch.core.device_mesh import (dispatch_lock, partition,
-                                          resolve_devices)
+                                          resolve_device, resolve_devices)
 from repro_torch.core.isa import TEST_ISA
 from repro_torch.core.machine import RegPool, independent_seq
 from repro_torch.core.simulator import SimMachine
 from repro_torch.core.uarch import SIM_SKL
+from repro_torch.corpus import build_jit_corpus
+from repro_torch.kernels import microbench as mb
 from repro_torch.kernels import wave_dispatch as wd
 
 SRC = Path(__file__).resolve().parent.parent / "src"
@@ -38,7 +41,9 @@ def test_package_has_the_slice_modules():
                  "core.port_usage", "core.lp", "core.latency",
                  "core.throughput", "core.characterize", "core.model_io",
                  "core.carry", "obs.tracer", "obs.metrics", "faults.plan",
-                 "faults.tolerance", "kernels.wave_dispatch"):
+                 "faults.tolerance", "kernels.wave_dispatch",
+                 "kernels._build", "kernels.microbench", "corpus",
+                 "corpus.jit_ops", "core.hardware", "core.kernel_bench"):
         assert f"repro_torch.{name}" in mods, name
 
 
@@ -79,6 +84,36 @@ def test_defaults_are_the_card():
     assert params["backend"].default == "cuda"
     assert params["device"].default == "cuda"
     assert resolve_devices() == (torch.device("cuda:0"),)
+    # the hardware path: device=None is cuda:0
+    for fn in (*mb.BLOCKERS.values(), build_jit_corpus, hardware.measure_op,
+               kernel_bench.profile_kernel):
+        assert inspect.signature(fn).parameters["device"].default is None
+    if torch.cuda.is_available():
+        assert resolve_device() == torch.device("cuda:0")
+
+
+def test_hardware_path_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour of a host without a card")
+    assert resolve_device("cpu") == torch.device("cpu")
+    before = dict(mb.launches)
+    for spec in (None, "cuda", "cuda:0"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            resolve_device(spec)
+        for blocker in mb.BLOCKERS.values():
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                blocker(device=spec)
+    assert mb.launches == before
+    x = torch.ones(4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_jit_corpus(sizes=(128,))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        hardware.characterize_corpus(
+            build_jit_corpus(sizes=(128,), device="cpu"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        hardware.measure_op("add", lambda t: t + 1, x)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        kernel_bench.profile_kernel("k", lambda: x, {})
 
 
 def test_simmachine_backend_env_default_is_cuda(monkeypatch):
