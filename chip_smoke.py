@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py
 
-Builds the port's two kernel libraries from ``src/repro_torch/csrc`` with
-nvcc, in parallel, and drives its two paths on the card:
+Builds the port's five kernel libraries from ``src/repro_torch/csrc`` with
+nvcc, in parallel, and drives its three paths on the card:
 
 * **characterize -> export.**  The wave-dispatch kernel is held bit for
   bit against its plain PyTorch version on the card; then a ``Campaign``
@@ -16,6 +16,13 @@ nvcc, in parallel, and drives its two paths on the card:
   ``characterize_corpus`` measures the full op corpus (Algorithm 2 in wall
   clock) and ``profile_kernel`` runs each blocker, and a 512x512 f32
   matmul, beside all four blockers.
+* **the op layer** (``kernels/ops.py``).  ``ops.flash_attention``,
+  ``ops.rmsnorm`` and ``ops.ssd_scan`` run at the full widths of the
+  repo's configs (SmolLM-360M, Zamba2-2.7B, Qwen3-8B, Mamba2-2.7B), with
+  one backward through ``ops.flash_attention``; then each of the three
+  kernels is held against its plain version on the same card inputs and
+  timed beside its plain version, one PyTorch call that computes the same
+  function (where there is one) and its bound.
 
 Every phase prints a line; any failure exits non-zero and prints no
 result.  The last three lines are the card's name and power limit, the
@@ -64,7 +71,7 @@ def phase_device():
         check=True, timeout=60).stdout.strip().splitlines()[0]
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}: {torch.cuda.get_device_name(0)} "
-        f"x{torch.cuda.device_count()}")
+        f"x{torch.cuda.device_count()} ({smi})")
     return smi
 
 
@@ -88,10 +95,15 @@ def _sass_counts(lib_path):
 
 
 def phase_build():
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import microbench as mb
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssd_scan as sd
     from repro_torch.kernels import wave_dispatch as wd
     t0 = time.perf_counter()
-    libs = {"wave_dispatch": wd.LIBRARY, "microbench": mb.LIBRARY}
+    libs = {"wave_dispatch": wd.LIBRARY, "microbench": mb.LIBRARY,
+            "flash_attention": fa.LIBRARY, "rmsnorm": rn.LIBRARY,
+            "ssd_scan": sd.LIBRARY}
     with ThreadPoolExecutor(len(libs)) as pool:   # one nvcc per source
         futures = [pool.submit(lib.load) for lib in libs.values()]
         for f in futures:
@@ -119,6 +131,18 @@ def phase_build():
         log(f"[build] SASS {kernel}: " + ", ".join(
             f"{k} {v}" for k, v in c.items()))
         require(c[op] > 0, f"{kernel}'s SASS has no {op}")
+    # the op layer's kernels: f32 FMAs on the CUDA cores, no tensor cores yet
+    for lib, kernel in ((fa.LIBRARY, "flash_fwd_kernel"),
+                        (sd.LIBRARY, "ssd_scan_kernel")):
+        fns = {f: c for f, c in _sass_counts(lib.path).items()
+               if kernel in f}
+        require(len(fns) > 0, f"{kernel} not found in the SASS")
+        for f, c in fns.items():
+            require(c["FFMA"] > 0 and c["HMMA"] == 0,
+                    f"{f}: FFMA {c['FFMA']}, HMMA {c['HMMA']}")
+        log(f"[build] SASS {kernel}: {len(fns)} instantiations, FFMA "
+            f"{min(c['FFMA'] for c in fns.values())}-"
+            f"{max(c['FFMA'] for c in fns.values())}, HMMA 0")
 
 
 def kernel_vs_plain(args):
@@ -738,6 +762,365 @@ def phase_blocker_timing():
     return out
 
 
+# ------------------------------------------------------------- op layer
+# The stated tolerances (each is both atol and rtol, as tests/test_kernels.py
+# states them for the reference's Pallas kernels): flash attention 2e-5 f32,
+# 2e-2 bf16; rmsnorm 1e-5 f32, 2e-2 bf16; SSD 1e-4 f32, 5e-2 bf16; the
+# chunked SSD against the sequential recurrence 1e-3; flash attention's
+# gradients 1e-4.
+OPS_TOL = {"flash_attention": {torch.float32: 2e-5, torch.bfloat16: 2e-2},
+           "rmsnorm": {torch.float32: 1e-5, torch.bfloat16: 2e-2},
+           "ssd_scan": {torch.float32: 1e-4, torch.bfloat16: 5e-2}}
+# At full width a causal row averages v over up to 4096 keys, so |out| is
+# about 0.5 / sqrt(i + 1), near 0.01 on late rows: an atol of 2e-2 could not
+# see a row left at zero.  Flash attention in bf16 is held there to atol 1e-3
+# and rtol 2e-2 (bf16 rounds the output relatively: one ulp is 2**-8 of it).
+FULL_WIDTH_ATOL = {("flash_attention", torch.bfloat16): 1e-3}
+SSD_SEQ_TOL = 1e-3
+GRAD_TOL = 1e-4
+OPS_SEED = 0
+
+
+def _ops_cases():
+    """The op layer's main path: each kernel at the full widths of the
+    repo's configs.  Flash attention (label, B, Hq, Hkv, Sq, Sk, D, causal,
+    dtype); rmsnorm (label, rows, d, dtype); SSD (label, b, s, h, p, n, g,
+    chunk, dtype).  The first case of each kernel is its headline."""
+    from repro_torch.configs.base import load_config
+    bf16, f32 = torch.bfloat16, torch.float32
+    smol = load_config("smollm_360m")
+    zamba = load_config("zamba2_2_7b")
+    qwen = load_config("qwen3_8b")
+    mamba = load_config("mamba2_2_7b")
+
+    flash = [("smollm_360m", 4, smol.num_heads, smol.num_kv_heads, 4096,
+              4096, smol.head_dim, True, bf16),
+             ("smollm_360m", 4, smol.num_heads, smol.num_kv_heads, 4096,
+              4096, smol.head_dim, True, f32),
+             ("zamba2_2_7b shared block", 1, zamba.num_heads,
+              zamba.num_kv_heads, 2048, 2048, zamba.head_dim, True, bf16),
+             ("zamba2_2_7b shared block", 1, zamba.num_heads,
+              zamba.num_kv_heads, 2048, 2048, zamba.head_dim, True, f32),
+             ("qwen3_8b", 1, qwen.num_heads, qwen.num_kv_heads, 2048, 2048,
+              qwen.head_dim, False, f32),
+             ("cross-length", 2, 4, 2, 256, 512, 64, False, f32)]
+    rms = [("smollm_360m residual", 4 * 4096, smol.d_model, bf16),
+           ("smollm_360m residual", 4 * 4096, smol.d_model, f32),
+           ("mamba2_2_7b residual", 2 * 4096, mamba.d_model, bf16),
+           ("ragged rows", 4093, smol.d_model, bf16),
+           ("ragged rows, odd width (one element a lane)", 4093, 1001, f32)]
+    m = (mamba.ssm_heads, mamba.ssm_headdim, mamba.ssm_state,
+         mamba.ssm_groups, mamba.ssm_chunk)
+    ssd = [("mamba2_2_7b", 2, 4096, *m, f32),
+           ("mamba2_2_7b", 2, 4096, *m, bf16)]
+    # held against the sequential recurrence: Mamba2 width, two chunks
+    ssd_seq = ("mamba2_2_7b, 2 chunks", 2, 2 * mamba.ssm_chunk, *m, f32)
+    return flash, rms, ssd, ssd_seq
+
+
+def _normal(gen, shape, dtype, scale=0.5):
+    return (torch.randn(shape, generator=gen, device="cuda") * scale).to(
+        dtype)
+
+
+def _flash_inputs(gen, case):
+    _, B, Hq, Hkv, Sq, Sk, D, causal, dtype = case
+    return (_normal(gen, (B, Hq, Sq, D), dtype),
+            _normal(gen, (B, Hkv, Sk, D), dtype),
+            _normal(gen, (B, Hkv, Sk, D), dtype), causal)
+
+
+def _rms_inputs(gen, case):
+    _, rows, d, dtype = case
+    return (_normal(gen, (rows, d), dtype),
+            1 + _normal(gen, (d,), torch.float32, 0.05))
+
+
+def _ssd_inputs(gen, case):
+    _, b, s, h, p, n, g, chunk, dtype = case
+    x = _normal(gen, (b, s, h, p), dtype)
+    dt = torch.nn.functional.softplus(_normal(gen, (b, s, h), torch.float32))
+    A = -torch.exp(_normal(gen, (h,), torch.float32, 0.3))
+    return (x, dt, A, _normal(gen, (b, s, g, n), dtype),
+            _normal(gen, (b, s, g, n), dtype), chunk)
+
+
+def _close(got, want, tol, atol=None):
+    """Max abs error, and the largest |got - want| / (atol + tol * |want|)
+    (atol defaults to tol): at most 1 where the two agree as numpy's
+    assert_allclose with these atol and rtol = tol has it."""
+    got, want = got.float(), want.float()
+    require(got.shape == want.shape, f"shape {tuple(got.shape)} vs "
+            f"{tuple(want.shape)}")
+    require(bool(torch.isfinite(got).all()), "output not finite")
+    diff = (got - want).abs()
+    atol = tol if atol is None else atol
+    return float(diff.max()), float((diff / (atol + tol * want.abs())).max())
+
+
+def _full_width_tol(name, dtype):
+    """(rtol, atol) at full width: the stated tolerance, with the tighter
+    atol of FULL_WIDTH_ATOL where there is one."""
+    tol = OPS_TOL[name][dtype]
+    return tol, FULL_WIDTH_ATOL.get((name, dtype), tol)
+
+
+def phase_ops():
+    """The op layer's main path on the card, with every launch count set to
+    0 just before and read just after; then each output held against its
+    kernel's plain version on the same inputs (launches not counted)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssd_scan as sd
+    require(torch.backends.cuda.matmul.allow_tf32 is False,
+            "allow_tf32 must be False: f32 products stay f32")
+    flash, rms, ssd, ssd_seq = _ops_cases()
+    gen = torch.Generator(device="cuda").manual_seed(OPS_SEED)
+    inputs = {"flash_attention": [_flash_inputs(gen, c) for c in flash],
+              "rmsnorm": [_rms_inputs(gen, c) for c in rms],
+              "ssd_scan": [_ssd_inputs(gen, c) for c in ssd]}
+    seq_args = _ssd_inputs(gen, ssd_seq)
+    # one backward: SmolLM-360M heads, 1 x 1024 tokens, f32
+    gq, gk, gv, _ = _flash_inputs(gen, ("grad", 1, 15, 5, 1024, 1024, 64,
+                                        True, torch.float32))
+    gout = _normal(gen, gq.shape, torch.float32)
+    torch.cuda.synchronize()
+
+    fa.launches = rn.launches = sd.launches = 0
+    t0 = time.perf_counter()
+    outs = {"flash_attention": [ops.flash_attention(q, k, v, causal)
+                                for q, k, v, causal in
+                                inputs["flash_attention"]],
+            "rmsnorm": [ops.rmsnorm(x, w) for x, w in inputs["rmsnorm"]],
+            "ssd_scan": [ops.ssd_scan(*a) for a in inputs["ssd_scan"]]}
+    seq_out = ops.ssd_scan(*seq_args)
+    leaves = [t.detach().clone().requires_grad_() for t in (gq, gk, gv)]
+    o = ops.flash_attention(*leaves, True)
+    grads = torch.autograd.grad(o, leaves, gout)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": fa.launches, "rmsnorm": rn.launches,
+                "ssd_scan": sd.launches}
+    log(f"[ops] main path: {len(flash)} + 1 flash attention calls (one with "
+        f"its backward), {len(rms)} rmsnorm, {len(ssd)} + 1 ssd_scan at full "
+        f"widths in {wall:.2f} s wall; kernel launches {launches}")
+    for name, n in launches.items():
+        require(n > 0, f"the op layer's main path never launched {name}")
+
+    errs = {}
+    plain = {"flash_attention": lambda q, k, v, causal:
+             fa.flash_attention_ref(q, k, v, causal=causal),
+             "rmsnorm": rn.rmsnorm_ref, "ssd_scan": sd.ssd_scan_ref}
+    cases = {"flash_attention": flash, "rmsnorm": rms, "ssd_scan": ssd}
+    for name in cases:
+        errs[name] = []
+        for case, args, got in zip(cases[name], inputs[name], outs[name]):
+            want = plain[name](*args)
+            tol, atol = _full_width_tol(name, case[-1])
+            pairs = zip(got, want) if name == "ssd_scan" else [(got, want)]
+            err, worst = (max(v) for v in zip(*(_close(g, w, tol, atol)
+                                                 for g, w in pairs)))
+            log(f"[ops] {name} {case}: kernel vs plain on the card max abs "
+                f"{err:.3e}, {worst:.3f} of the tolerance ({atol:.0e} abs + "
+                f"{tol:.0e} rel)")
+            require(worst <= 1, f"{name} {case}: kernel disagrees with its "
+                    "plain version")
+            errs[name].append(err)
+    y_seq, st_seq = ref.reference_ssd_sequential(*seq_args[:5])
+    for part, got, want in (("y", seq_out[0], y_seq),
+                            ("state", seq_out[1], st_seq)):
+        err, worst = _close(got, want, SSD_SEQ_TOL)
+        log(f"[ops] ssd_scan {ssd_seq} {part}: kernel vs the sequential "
+            f"recurrence max abs {err:.3e}, {worst:.3f} of the tolerance "
+            f"({SSD_SEQ_TOL:.0e} abs + rel)")
+        require(worst <= 1, f"ssd_scan disagrees with the sequential "
+                f"recurrence ({part})")
+    leaves = [t.detach().clone().requires_grad_() for t in (gq, gk, gv)]
+    want = torch.autograd.grad(fa.flash_attention_ref(*leaves, causal=True),
+                               leaves, gout)
+    for label, g, w in zip("qkv", grads, want):
+        err, worst = _close(g, w, GRAD_TOL)
+        log(f"[ops] ops.flash_attention backward d{label} (1 x 15/5 heads x "
+            f"1024 x 64, causal, f32) vs autograd through the plain version: "
+            f"max abs {err:.3e}, {worst:.3f} of the tolerance "
+            f"({GRAD_TOL:.0e} abs + rel)")
+        require(worst <= 1, f"d{label} disagrees with the plain path's "
+                "gradient")
+    _ops_small_shapes(gen)
+    return launches, errs, inputs
+
+
+# the CPU tests' shapes (tests/test_torch_ops.py): head dims 8-32, causal
+# with Sq < Sk and Sq > Sk, a 96-key tail tile; SSD groups, tiny widths and
+# a 6-chunk scan; rmsnorm widths that take one element a lane
+SMALL_FLASH = [(1, 2, 2, 64, 64, 16), (2, 4, 2, 128, 128, 32),
+               (1, 6, 2, 96, 96, 16), (2, 2, 1, 64, 128, 8),
+               (1, 3, 1, 64, 64, 20), (1, 2, 1, 128, 64, 16)]
+SMALL_SSD = [(1, 64, 2, 16, 16, 1, 16), (2, 128, 4, 32, 16, 2, 32),
+             (1, 96, 2, 8, 8, 2, 16)]       # (b, s, h, p, n, g, chunk)
+SMALL_RMS = [(32, 64), (100, 128), (7, 16), (5, 21)]
+
+
+def _ops_small_shapes(gen):
+    """Each kernel against its plain version on the card at the CPU tests'
+    shapes, both dtypes, both masks (launches made after the main path's
+    counts were read)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssd_scan as sd
+    n, worst = 0, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in SMALL_FLASH:
+            for causal in (True, False):
+                q, k, v, _ = _flash_inputs(gen, ("", *shape, causal, dtype))
+                kw = {"causal": causal, "block_q": 32, "block_k": 32}
+                worst = max(worst, _close(
+                    fa.flash_attention_fwd(q, k, v, **kw),
+                    fa.flash_attention_ref(q, k, v, **kw),
+                    OPS_TOL["flash_attention"][dtype])[1])
+                n += 1
+        for b, s, h, p, nn, g, chunk in SMALL_SSD:
+            args = _ssd_inputs(gen, ("", b, s, h, p, nn, g, chunk, dtype))
+            for got, want in zip(sd.ssd_scan(*args), sd.ssd_scan_ref(*args)):
+                worst = max(worst, _close(got, want,
+                                          OPS_TOL["ssd_scan"][dtype])[1])
+            n += 1
+        for rows, d in SMALL_RMS:
+            x, w = _rms_inputs(gen, ("", rows, d, dtype))
+            # w in f32 and in bf16: the kernel reads either
+            for w in (w, w.to(torch.bfloat16)):
+                worst = max(worst, _close(rn.rmsnorm(x, w),
+                                          rn.rmsnorm_ref(x, w),
+                                          OPS_TOL["rmsnorm"][dtype])[1])
+                n += 1
+    # x and B/C in different dtypes (held to the bf16 tolerance)
+    other = {torch.float32: torch.bfloat16, torch.bfloat16: torch.float32}
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, s, h, p, nn, g, chunk in SMALL_SSD:
+            x, *rest = _ssd_inputs(gen, ("", b, s, h, p, nn, g, chunk, dtype))
+            args = (x.to(other[dtype]), *rest)
+            for got, want in zip(sd.ssd_scan(*args), sd.ssd_scan_ref(*args)):
+                worst = max(worst, _close(
+                    got, want, OPS_TOL["ssd_scan"][torch.bfloat16])[1])
+            n += 1
+    log(f"[ops] {n} small-shape cases (the CPU tests' shapes, f32 and bf16, "
+        "rmsnorm's w in both, SSD's x and B/C in either): every kernel within "
+        f"{worst:.3f} of its tolerance of its plain version")
+    require(worst <= 1, "a kernel disagrees with its plain version at the "
+            "CPU tests' shapes")
+
+
+def _flash_pairs(Sq, Sk, causal):
+    """Query/key pairs the function needs: with top-left causal alignment,
+    query i sees min(i + 1, Sk) keys."""
+    if not causal:
+        return Sq * Sk
+    full = max(0, Sq - Sk)           # rows that see every key
+    part = min(Sq, Sk)               # rows i < Sk see i + 1 keys
+    return part * (part + 1) // 2 + full * Sk
+
+
+def _peak(dtype):
+    """The card's peak for products of inputs of ``dtype``: the bf16
+    tensor-core rate for bf16, the TF32 rate for f32."""
+    return H100_SXM["peak_bf16_flops" if dtype == torch.bfloat16
+                    else "peak_tf32_flops"]
+
+
+def _bound_ops(name, args):
+    """Least time (ms) of one call on these inputs: each input read once and
+    each output written once over HBM, or the products' FLOP at the peak for
+    the input type (flash attention: 4 * D a query/key pair the mask keeps;
+    SSD, per chunk: the scores C B^T once a group, 2 * N a lower-triangle
+    (i, j) pair, and a head's product of the masked scores with xbar, 2 * P
+    a pair, and 2 * Q * P * N each for its state read-out and update);
+    rmsnorm: 4 FLOP an element at the FP32 rate.  The larger of the two."""
+    if name == "flash_attention":
+        q, k, v, causal = args
+        B, Hq, Sq, D = q.shape
+        nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+        flop = 4 * D * B * Hq * _flash_pairs(Sq, k.shape[2], causal)
+        return _bound(nbytes, flop, _peak(q.dtype))
+    if name == "rmsnorm":
+        x, w = args
+        nbytes = 2 * x.numel() * x.element_size() + w.numel() * w.element_size()
+        return _bound(nbytes, 4 * x.numel(), H100_SXM["peak_fp32_flops"])
+    x, dt, A, B, C, chunk = args
+    b, s, h, p = x.shape
+    g, n = B.shape[2:]
+    Q = min(chunk, s)
+    nbytes = (2 * x.numel() * x.element_size()
+              + 2 * B.numel() * B.element_size()
+              + 4 * (dt.numel() + A.numel() + b * h * p * n))
+    pairs = Q * (Q + 1) // 2
+    per_chunk = g * 2 * n * pairs + h * (2 * p * pairs + 4 * Q * p * n)
+    return _bound(nbytes, b * (s // Q) * per_chunk, _peak(x.dtype))
+
+
+def _library_op(name):
+    """One PyTorch call that computes the kernel's function on the same
+    inputs (timed here as a yardstick; the port never calls it), and what
+    it is: ``F.scaled_dot_product_attention(enable_gqa=True)``,
+    ``F.rms_norm``; none for the SSD scan."""
+    F = torch.nn.functional
+    if name == "flash_attention":
+        return (lambda q, k, v, causal: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True),
+            "F.scaled_dot_product_attention(enable_gqa=True)")
+    if name == "rmsnorm":
+        return (lambda x, w: F.rms_norm(x, (x.shape[-1],), w, 1e-5),
+                "F.rms_norm")
+    return None, None
+
+
+def phase_ops_timing(inputs):
+    """Each case of the op layer's main path: the kernel's event time a
+    call, its device time a launch back to back, the plain version's time,
+    the library call's time and the bound."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssd_scan as sd
+    flash, rms, ssd, _ = _ops_cases()
+    fns = {"flash_attention": (lambda q, k, v, causal: fa.flash_attention_fwd(
+               q, k, v, causal=causal),
+           lambda q, k, v, causal: fa.flash_attention_ref(
+               q, k, v, causal=causal)),
+           "rmsnorm": (rn.rmsnorm, rn.rmsnorm_ref),
+           "ssd_scan": (sd.ssd_scan, sd.ssd_scan_ref)}
+    cases = {"flash_attention": flash, "rmsnorm": rms, "ssd_scan": ssd}
+    reps = {"flash_attention": 5, "rmsnorm": 100, "ssd_scan": 5}
+    out = {}
+    for name, (fn, ref) in fns.items():
+        lib, lib_what = _library_op(name)
+        out[name] = []
+        for case, args in zip(cases[name], inputs[name]):
+            bound_ms, bound_by = _bound_ops(name, args)
+            n = reps[name]
+            ms = _time_ms(fn, args, reps=n)
+            device_ms = _device_ms(fn, args, n, bound_ms)
+            plain_ms = _time_ms(ref, args, reps=1)
+            library_ms = None
+            if lib is not None:
+                lib_err, lib_worst = _close(lib(*args), ref(*args),
+                                            *_full_width_tol(name, case[-1]))
+                require(lib_worst <= 1, f"{name} {case}: the library call "
+                        f"computes another function (max abs {lib_err:.3e})")
+                library_ms = _time_ms(lib, args, reps=n)
+            row = {"case": [str(c) for c in case], "ms": ms,
+                   "device_ms": device_ms, "plain_ms": plain_ms,
+                   "library_ms": library_ms, "library": lib_what,
+                   "bound_ms": bound_ms, "bound_by": bound_by}
+            out[name].append(row)
+            lib_text = "" if library_ms is None else \
+                f", library {library_ms:.4f} ms ({lib_what})"
+            log(f"[ops-timing] {name} {case}: kernel {ms:.4f} ms a call "
+                f"(device {device_ms:.4f} ms a launch, {n} back to back), "
+                f"plain {plain_ms:.3f} ms{lib_text}, bound {bound_ms:.5f} ms "
+                f"({bound_by}), kernel/bound {device_ms / bound_ms:.1f}")
+    return out
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -748,6 +1131,8 @@ def main():
     errs = phase_blockers()
     blocker_launches, profiles = phase_hardware()
     blocker_times = phase_blocker_timing()
+    ops_launches, ops_errs, ops_inputs = phase_ops()
+    ops_times = phase_ops_timing(ops_inputs)
     big = timing["largest"]
     report = {"kernels": [{
         "name": "wave_dispatch", "route": "cuda",
@@ -776,6 +1161,21 @@ def main():
                             if k != "default"},
             "overlap_as_target": profiles[unit]})
     report["profile_matmul_512x512_f32"] = profiles["matmul_512x512_f32"]
+    replaces = {"flash_attention": "flash_attention.py:26",
+                "rmsnorm": "rmsnorm.py:16", "ssd_scan": "ssd_scan.py:25"}
+    for name, rows in ops_times.items():
+        head = rows[0]
+        report["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": f"src/repro/kernels/{replaces[name]}",
+            "launches": ops_launches[name],
+            "max_abs_err": max(ops_errs[name]),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "device_ms": head["device_ms"], "case": head["case"],
+            "other_cases": rows[1:]})
     print(smi, flush=True)
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,21 @@
+"""Phi-3-mini-3.8B — RoPE SwiGLU, MHA (kv=heads) [arXiv:2404.14219]."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="phi3-mini-3.8b",
+    family="dense",
+    num_layers=32,
+    d_model=3072,
+    num_heads=32,
+    num_kv_heads=32,
+    head_dim=96,
+    d_ff=8192,
+    vocab_size=32064,
+    mlp_kind="swiglu",
+    tie_embeddings=False,
+)
+
+SMOKE_CONFIG = CONFIG.replace(
+    num_layers=2, d_model=64, num_heads=4, num_kv_heads=4, head_dim=16,
+    d_ff=128, vocab_size=512,
+)

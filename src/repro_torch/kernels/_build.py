@@ -7,6 +7,9 @@ checkout root, or ``$REPRO_TORCH_BUILD_DIR``), and loaded with ``ctypes``.
 An edited source is rebuilt; a built one is reused.  Several libraries can
 be built at once from several threads: each holds its own lock, and
 ``nvcc`` runs outside the interpreter lock.
+
+Every wrapper follows one rule, :func:`on_card`: a CUDA tensor launches the
+kernel (or raises), a CPU tensor takes the plain version.
 """
 from __future__ import annotations
 
@@ -19,7 +22,11 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
+# the dtype codes of the op layer's C entry points
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def build_dir() -> Path:
@@ -39,6 +46,28 @@ def _nvcc() -> str:
         return str(cand)
     raise RuntimeError("nvcc not found: the port's kernels are built from "
                        "source with the CUDA toolkit")
+
+
+def on_card(name, *tensors) -> bool:
+    """True for CUDA tensors (after checking what the kernels need: a card,
+    contiguous and 16-byte aligned inputs on one device), False for CPU
+    tensors; any other device raises."""
+    dev = tensors[0].device
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {dev}")
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"{name}: {dev} tensor but no CUDA device is "
+                           "available")
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: inputs on {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: inputs must be 16-byte aligned")
+    return True
 
 
 class CudaLibrary:
@@ -89,3 +118,13 @@ class CudaLibrary:
             self.path = so
             self._lib = lib
             return lib, True
+
+    def launch(self, fn_name: str, device, *args) -> None:
+        """Call the C entry point ``fn_name`` with ``args`` and the current
+        stream of ``device``; raise if it returns a CUDA error."""
+        lib, _ = self.load()
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = getattr(lib, fn_name)(*args, stream)
+        if err != 0:
+            raise RuntimeError(f"{fn_name} failed: CUDA error {err}")

@@ -44,6 +44,7 @@ import torch
 
 from repro_torch.core.device_mesh import resolve_device
 from repro_torch.kernels._build import CudaLibrary
+from repro_torch.kernels._build import on_card as _on_card
 
 TILE = 128
 MXU_MAX_TILE = 128      # MXU_MAX_TILE in the CUDA source
@@ -76,29 +77,8 @@ def _check(name, t, device=None):
         raise ValueError(f"{name} is on {t.device}, expected {device}")
 
 
-def _on_card(name, *tensors) -> bool:
-    """True for CUDA tensors (after checking what the kernels need), False
-    for CPU tensors; any other device raises."""
-    dev = tensors[0].device
-    if dev.type == "cpu":
-        return False
-    if dev.type != "cuda":
-        raise ValueError(f"{name} runs on cuda or cpu, not {dev}")
-    for t in tensors:
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: inputs must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: inputs must be 16-byte aligned")
-    return True
-
-
 def _launch(unit, fn_name, dev, *args):
-    lib, _ = LIBRARY.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, fn_name)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{fn_name} failed: CUDA error {err}")
+    LIBRARY.launch(fn_name, dev, *args)
     launches[unit] += 1
 
 

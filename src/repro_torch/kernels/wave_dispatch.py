@@ -109,14 +109,9 @@ def wave_dispatch(issue, mask_id, lat, blk, valid, prod, delta, lut):
     if S == 0 or E == 0:
         counts.zero_()
         return done, counts
-    lib, _ = LIBRARY.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.wave_dispatch_launch(
-            *(t.data_ptr() for t in args), done.data_ptr(),
-            counts.data_ptr(), S, E, R, M, P, stream)
-    if err != 0:
-        raise RuntimeError(f"wave_dispatch launch failed: CUDA error {err}")
+    LIBRARY.launch("wave_dispatch_launch", dev,
+                   *(t.data_ptr() for t in args), done.data_ptr(),
+                   counts.data_ptr(), S, E, R, M, P)
     launches += 1
     return done, counts
 

@@ -21,8 +21,13 @@ from repro_torch.core.isa import TEST_ISA
 from repro_torch.core.machine import RegPool, independent_seq
 from repro_torch.core.simulator import SimMachine
 from repro_torch.core.uarch import SIM_SKL
+from repro_torch.configs.base import ARCH_IDS
 from repro_torch.corpus import build_jit_corpus
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import microbench as mb
+from repro_torch.kernels import ops
+from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels import ssd_scan as sd
 from repro_torch.kernels import wave_dispatch as wd
 
 SRC = Path(__file__).resolve().parent.parent / "src"
@@ -43,7 +48,12 @@ def test_package_has_the_slice_modules():
                  "core.carry", "obs.tracer", "obs.metrics", "faults.plan",
                  "faults.tolerance", "kernels.wave_dispatch",
                  "kernels._build", "kernels.microbench", "corpus",
-                 "corpus.jit_ops", "core.hardware", "core.kernel_bench"):
+                 "corpus.jit_ops", "core.hardware", "core.kernel_bench",
+                 "configs", "configs.base", *(f"configs.{a}" for a in
+                                              ARCH_IDS),
+                 "models", "models.mamba", "kernels.ref", "kernels.ops",
+                 "kernels.flash_attention", "kernels.rmsnorm",
+                 "kernels.ssd_scan"):
         assert f"repro_torch.{name}" in mods, name
 
 
@@ -114,6 +124,29 @@ def test_hardware_path_without_a_card_raises():
         hardware.measure_op("add", lambda t: t + 1, x)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         kernel_bench.profile_kernel("k", lambda: x, {})
+
+
+def test_op_layer_with_a_cuda_tensor_and_no_card_raises():
+    """A CUDA tensor never takes the plain version: on a host without a
+    card the op layer's entry points raise and launch nothing."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour of a host without a card")
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        q, kv, x, w = (torch.empty(s, device="cuda") for s in
+                       ((1, 2, 64, 16), (1, 1, 64, 16), (8, 16), (16,)))
+        xs, dt, A, B = (torch.empty(s, device="cuda") for s in
+                        ((1, 32, 2, 8), (1, 32, 2), (2,), (1, 32, 1, 4)))
+    before = (fa.launches, rn.launches, sd.launches)
+    calls = (lambda: ops.flash_attention(q, kv, kv),
+             lambda: ops.rmsnorm(x, w),
+             lambda: ops.ssd_scan(xs, dt, A, B, B, 16))
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert (fa.launches, rn.launches, sd.launches) == before
+    with pytest.raises((RuntimeError, AssertionError)):
+        torch.ones(4, device="cuda")       # and no CUDA tensor can be made
 
 
 def test_simmachine_backend_env_default_is_cuda(monkeypatch):
