@@ -3,7 +3,9 @@
     python3 chip_smoke.py
 
 Builds the port's five kernel libraries from ``src/repro_torch/csrc`` with
-nvcc, in parallel, and drives its three paths on the card:
+nvcc, in parallel, runs the jax-free card tests
+(``python -m pytest -m cuda tests/test_torch_card_*.py``) against them, and
+drives the port's three paths on the card:
 
 * **characterize -> export.**  The wave-dispatch kernel is held bit for
   bit against its plain PyTorch version on the card; then a ``Campaign``
@@ -18,11 +20,12 @@ nvcc, in parallel, and drives its three paths on the card:
   matmul, beside all four blockers.
 * **the op layer** (``kernels/ops.py``).  ``ops.flash_attention``,
   ``ops.rmsnorm`` and ``ops.ssd_scan`` run at the full widths of the
-  repo's configs (SmolLM-360M, Zamba2-2.7B, Qwen3-8B, Mamba2-2.7B), with
-  one backward through ``ops.flash_attention``; then each of the three
-  kernels is held against its plain version on the same card inputs and
-  timed beside its plain version, one PyTorch call that computes the same
-  function (where there is one) and its bound.
+  repo's configs (SmolLM-360M, Zamba2-2.7B, Qwen3-8B, Phi-3-mini-3.8B,
+  Mamba2-2.7B), with one backward through ``ops.flash_attention``; then
+  each of the three kernels is held against its plain version on the same
+  card inputs (and on views: transposed, strided, off 16-byte alignment)
+  and timed beside its plain version, one PyTorch call that computes the
+  same function (where there is one) and its bound.
 
 Every phase prints a line; any failure exits non-zero and prints no
 result.  The last three lines are the card's name and power limit, the
@@ -32,6 +35,8 @@ Imports nothing of jax and nothing of the reference package ``repro``.
 """
 import functools
 import json
+import os
+import re
 import shutil
 import subprocess
 import sys
@@ -76,7 +81,7 @@ def phase_device():
 
 
 def _sass_counts(lib_path):
-    """Per kernel function of the library: how many HMMA, FFMA and
+    """Per kernel function of the library: how many HMMA, HGMMA, FFMA and
     MUFU.RSQ instructions its SASS holds (None without cuobjdump)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
@@ -87,7 +92,7 @@ def _sass_counts(lib_path):
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            counts[fn] = {"HMMA": 0, "FFMA": 0, "MUFU.RSQ": 0}
+            counts[fn] = {"HMMA": 0, "HGMMA": 0, "FFMA": 0, "MUFU.RSQ": 0}
         elif fn is not None:
             for op in counts[fn]:
                 counts[fn][op] += line.count(op)
@@ -131,18 +136,54 @@ def phase_build():
         log(f"[build] SASS {kernel}: " + ", ".join(
             f"{k} {v}" for k, v in c.items()))
         require(c[op] > 0, f"{kernel}'s SASS has no {op}")
-    # the op layer's kernels: f32 FMAs on the CUDA cores, no tensor cores yet
-    for lib, kernel in ((fa.LIBRARY, "flash_fwd_kernel"),
-                        (sd.LIBRARY, "ssd_scan_kernel")):
-        fns = {f: c for f, c in _sass_counts(lib.path).items()
-               if kernel in f}
-        require(len(fns) > 0, f"{kernel} not found in the SASS")
-        for f, c in fns.items():
-            require(c["FFMA"] > 0 and c["HMMA"] == 0,
-                    f"{f}: FFMA {c['FFMA']}, HMMA {c['HMMA']}")
-        log(f"[build] SASS {kernel}: {len(fns)} instantiations, FFMA "
-            f"{min(c['FFMA'] for c in fns.values())}-"
-            f"{max(c['FFMA'] for c in fns.values())}, HMMA 0")
+    # flash attention runs its products on the tensor cores (every head dim,
+    # both dtypes); the SSD scan still does f32 FMAs on the CUDA cores
+    fns = {f: c for f, c in _sass_counts(fa.LIBRARY.path).items()
+           if "flash_fwd_kernel" in f}
+    require(len(fns) > 0, "flash_fwd_kernel not found in the SASS")
+    for f, c in fns.items():
+        require(c["HMMA"] + c["HGMMA"] > 0,
+                f"{f}: no HMMA or HGMMA in its SASS")
+    log(f"[build] SASS flash_fwd_kernel: {len(fns)} instantiations, HMMA "
+        f"{min(c['HMMA'] for c in fns.values())}-"
+        f"{max(c['HMMA'] for c in fns.values())}, HGMMA "
+        f"{max(c['HGMMA'] for c in fns.values())}")
+    fns = {f: c for f, c in _sass_counts(sd.LIBRARY.path).items()
+           if "ssd_scan_kernel" in f}
+    require(len(fns) > 0, "ssd_scan_kernel not found in the SASS")
+    for f, c in fns.items():
+        require(c["FFMA"] > 0 and c["HMMA"] == 0,
+                f"{f}: FFMA {c['FFMA']}, HMMA {c['HMMA']}")
+    log(f"[build] SASS ssd_scan_kernel: {len(fns)} instantiations, FFMA "
+        f"{min(c['FFMA'] for c in fns.values())}-"
+        f"{max(c['FFMA'] for c in fns.values())}, HMMA 0")
+
+
+def phase_card_tests():
+    """The ``cuda``-marked pytest cases that need no jax (the jax-free
+    ``tests/test_torch_card_*.py``), in a subprocess on this card, with the
+    libraries just built.  Fails if pytest fails or passes no test."""
+    files = sorted(str(p.relative_to(ROOT))
+                   for p in (ROOT / "tests").glob("test_torch_card_*.py"))
+    require(files, "no tests/test_torch_card_*.py")
+    cmd = [sys.executable, "-m", "pytest", "-q", "-m", "cuda",
+           "-p", "no:cacheprovider", *files]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=900)
+    tail = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() \
+        else ""
+    passed = re.search(r"(\d+) passed", tail)
+    n = int(passed.group(1)) if passed else 0
+    log(f"[card-tests] python -m pytest -q -m cuda {' '.join(files)}: "
+        f"{tail} (rc {proc.returncode}, {time.perf_counter() - t0:.1f} s)")
+    if proc.returncode != 0 or n == 0:
+        log(proc.stdout[-6000:])
+        log(proc.stderr[-3000:])
+    require(proc.returncode == 0, "the card tests failed")
+    require(n > 0, "the card tests passed no test")
+    return n
 
 
 def kernel_vs_plain(args):
@@ -791,6 +832,7 @@ def _ops_cases():
     smol = load_config("smollm_360m")
     zamba = load_config("zamba2_2_7b")
     qwen = load_config("qwen3_8b")
+    phi3 = load_config("phi3_mini_3_8b")
     mamba = load_config("mamba2_2_7b")
 
     flash = [("smollm_360m", 4, smol.num_heads, smol.num_kv_heads, 4096,
@@ -803,6 +845,8 @@ def _ops_cases():
               zamba.num_kv_heads, 2048, 2048, zamba.head_dim, True, f32),
              ("qwen3_8b", 1, qwen.num_heads, qwen.num_kv_heads, 2048, 2048,
               qwen.head_dim, False, f32),
+             ("phi3_mini_3_8b", 1, phi3.num_heads, phi3.num_kv_heads, 2048,
+              2048, phi3.head_dim, True, bf16),
              ("cross-length", 2, 4, 2, 256, 512, 64, False, f32)]
     rms = [("smollm_360m residual", 4 * 4096, smol.d_model, bf16),
            ("smollm_360m residual", 4 * 4096, smol.d_model, f32),
@@ -947,8 +991,68 @@ def phase_ops():
             f"({GRAD_TOL:.0e} abs + rel)")
         require(worst <= 1, f"d{label} disagrees with the plain path's "
                 "gradient")
+    _ops_views(gen)
     _ops_small_shapes(gen)
     return launches, errs, inputs
+
+
+def _ops_views(gen):
+    """Views on the card, each held against the plain version on the same
+    view (launches made after the main path's counts were read): q, k, v
+    made (B, S, H, D) and passed transposed (SmolLM-360M heads, 1 x 2048
+    tokens, causal, both dtypes); ``x[1:]`` of an f32 (rows, 21) tensor and
+    SmolLM-360M residual rows one element into a buffer, with ``w[1:]``; x
+    transposed and B, C split out of one projection at Mamba2-2.7B
+    width."""
+    from repro_torch.configs.base import load_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssd_scan as sd
+    smol = load_config("smollm_360m")
+    mamba = load_config("mamba2_2_7b")
+    H, Hkv, D = smol.num_heads, smol.num_kv_heads, smol.head_dim
+    worst = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q = _normal(gen, (1, 2048, H, D), dtype).transpose(1, 2)
+        kv = _normal(gen, (1, 2048, 2 * Hkv, D), dtype)
+        k = kv[:, :, :Hkv].transpose(1, 2)
+        v = kv[:, :, Hkv:].transpose(1, 2)
+        require(not (q.is_contiguous() or k.is_contiguous()),
+                "the flash view case must pass views")
+        got = fa.flash_attention_fwd(q, k, v, causal=True)
+        want = fa.flash_attention_ref(q, k, v, causal=True)
+        worst[f"flash {dtype}"] = _close(
+            got, want, *_full_width_tol("flash_attention", dtype))[1]
+    for rows, d, dtype in ((4096, 21, torch.float32),
+                           (4096, smol.d_model, torch.bfloat16),
+                           (4096, smol.d_model, torch.float32)):
+        # x[1:] of (rows + 1, 21); d = 960 rows are 16-byte multiples, so
+        # those start one element into a flat buffer
+        x = _normal(gen, (rows + 1, d), dtype)[1:] if d == 21 else \
+            _normal(gen, (rows * d + 1,), dtype)[1:].view(rows, d)
+        w = (1 + _normal(gen, (d + 1,), torch.float32, 0.05))[1:]
+        require(x.data_ptr() % 16 != 0, "x must start off alignment")
+        worst[f"rmsnorm offset x, w ({rows}, {d}) {dtype}"] = _close(
+            rn.rmsnorm(x, w), rn.rmsnorm_ref(x, w),
+            OPS_TOL["rmsnorm"][dtype])[1]
+    h, p, n, g, chunk = (mamba.ssm_heads, mamba.ssm_headdim, mamba.ssm_state,
+                         mamba.ssm_groups, mamba.ssm_chunk)
+    x, dt, A, _, _, _ = _ssd_inputs(gen, ("", 1, 2 * chunk, h, p, n, g,
+                                          chunk, torch.float32))
+    x = x.transpose(1, 2).contiguous().transpose(1, 2)
+    bc = _normal(gen, (1, 2 * chunk, g, 2 * n), torch.float32)
+    B, C = bc[..., :n], bc[..., n:]
+    for got, want in zip(sd.ssd_scan(x, dt, A, B, C, chunk),
+                         sd.ssd_scan_ref(x, dt, A, B, C, chunk)):
+        worst["ssd B, C split, x transposed"] = max(
+            worst.get("ssd B, C split, x transposed", 0.0),
+            _close(got, want, OPS_TOL["ssd_scan"][torch.float32])[1])
+    log("[ops] views (transposed q, k, v; x[1:] and w[1:]; SSD x transposed "
+        "and B, C split from one projection) vs the plain version on the "
+        "same views, share of the tolerance: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in worst.items()))
+    require(max(worst.values()) <= 1, "a kernel disagrees with its plain "
+            "version on a view")
 
 
 # the CPU tests' shapes (tests/test_torch_ops.py): head dims 8-32, causal
@@ -1074,10 +1178,25 @@ def _library_op(name):
     return None, None
 
 
+def _median(values):
+    return sorted(values)[len(values) // 2]
+
+
+OPS_ROUNDS = 3   # interleaved device-time samples of kernel and library
+
+# The cases whose library call may miss the kernel's own limit, logged and
+# reported with no yardstick; any other case fails the run there.  SDPA at
+# Phi-3-mini's D = 96 rounds P to bf16 (1.32 of atol 1e-3 + rtol 2e-2 on
+# an H100), where the kernel splits P into bf16 big + small.
+LIBRARY_OFF_LIMIT = {("flash_attention", "phi3_mini_3_8b", torch.bfloat16)}
+
+
 def phase_ops_timing(inputs):
     """Each case of the op layer's main path: the kernel's event time a
     call, its device time a launch back to back, the plain version's time,
-    the library call's time and the bound."""
+    the library call's time and the bound.  The kernel's and the library
+    call's device times are the medians of OPS_ROUNDS samples taken in
+    turns (kernel, library, library, kernel, ...)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import ssd_scan as sd
@@ -1098,32 +1217,60 @@ def phase_ops_timing(inputs):
             bound_ms, bound_by = _bound_ops(name, args)
             n = reps[name]
             ms = _time_ms(fn, args, reps=n)
-            device_ms = _device_ms(fn, args, n, bound_ms)
             plain_ms = _time_ms(ref, args, reps=1)
-            library_ms = None
+            samples = {fn: [], lib: []}
+            for r in range(OPS_ROUNDS):
+                for f in ((fn, lib) if r % 2 == 0 else (lib, fn)):
+                    if f is not None:
+                        samples[f].append(_device_ms(f, args, n, bound_ms))
+            device_ms = _median(samples[fn])
+            library_ms = lib_text = None
             if lib is not None:
+                # the library call is a yardstick only where it computes the
+                # kernel's function within the kernel's own limit
                 lib_err, lib_worst = _close(lib(*args), ref(*args),
                                             *_full_width_tol(name, case[-1]))
-                require(lib_worst <= 1, f"{name} {case}: the library call "
-                        f"computes another function (max abs {lib_err:.3e})")
-                library_ms = _time_ms(lib, args, reps=n)
+                lib_ms = _time_ms(lib, args, reps=n)
+                lib_device_ms = _median(samples[lib])
+                require(lib_worst <= 1 or (name, case[0], case[-1])
+                        in LIBRARY_OFF_LIMIT, f"{name} {case}: the library "
+                        f"call is {lib_worst:.3f} of the kernel's limit")
+                if lib_worst <= 1:
+                    library_ms = lib_ms
+                    lib_text = (f", library {lib_ms:.4f} ms (device "
+                                f"{lib_device_ms:.4f} ms a launch; "
+                                f"{lib_what})")
+                else:
+                    lib_text = (f", library {lib_ms:.4f} ms ({lib_what}) "
+                                f"not a yardstick: {lib_worst:.3f} of the "
+                                f"limit from the plain version (max abs "
+                                f"{lib_err:.3e})")
             row = {"case": [str(c) for c in case], "ms": ms,
                    "device_ms": device_ms, "plain_ms": plain_ms,
                    "library_ms": library_ms, "library": lib_what,
-                   "bound_ms": bound_ms, "bound_by": bound_by}
+                   "library_device_ms": None if library_ms is None
+                   else lib_device_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "device_ms_samples": samples[fn]}
+            if lib is not None:
+                row["library_device_ms_samples"] = samples[lib]
+            if lib_text and library_ms is None:
+                row["library_off_limit"] = {"ms": lib_ms, "worst": lib_worst,
+                                            "max_abs": lib_err}
             out[name].append(row)
-            lib_text = "" if library_ms is None else \
-                f", library {library_ms:.4f} ms ({lib_what})"
+            lib_text = lib_text or ""
             log(f"[ops-timing] {name} {case}: kernel {ms:.4f} ms a call "
-                f"(device {device_ms:.4f} ms a launch, {n} back to back), "
-                f"plain {plain_ms:.3f} ms{lib_text}, bound {bound_ms:.5f} ms "
-                f"({bound_by}), kernel/bound {device_ms / bound_ms:.1f}")
+                f"(device {device_ms:.4f} ms a launch, median of "
+                f"{OPS_ROUNDS} x {n} back to back), plain {plain_ms:.3f} "
+                f"ms{lib_text}, bound {bound_ms:.5f} ms ({bound_by}), "
+                f"kernel/bound {device_ms / bound_ms:.1f}")
     return out
 
 
 def main():
     smi = phase_device()
     phase_build()
+    card_tests = phase_card_tests()
     phase_kernel_checks()
     machines, wall, launches = phase_main_path()
     timing = phase_main_chunks(machines, launches)
@@ -1161,6 +1308,7 @@ def main():
                             if k != "default"},
             "overlap_as_target": profiles[unit]})
     report["profile_matmul_512x512_f32"] = profiles["matmul_512x512_f32"]
+    report["card_tests_passed"] = card_tests
     replaces = {"flash_attention": "flash_attention.py:26",
                 "rmsnorm": "rmsnorm.py:16", "ssd_scan": "ssd_scan.py:25"}
     for name, rows in ops_times.items():

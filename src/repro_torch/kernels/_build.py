@@ -8,8 +8,12 @@ An edited source is rebuilt; a built one is reused.  Several libraries can
 be built at once from several threads: each holds its own lock, and
 ``nvcc`` runs outside the interpreter lock.
 
-Every wrapper follows one rule, :func:`on_card`: a CUDA tensor launches the
-kernel (or raises), a CPU tensor takes the plain version.
+Every wrapper follows one rule: a CUDA tensor launches the kernel (or
+raises), a CPU tensor takes the plain version.  The kernels read rows with
+16-byte loads, so a wrapper takes its inputs through :func:`card_inputs`,
+which copies (:func:`aligned`) only a CUDA view that is not contiguous and
+16-byte aligned.  (``wave_dispatch``, whose inputs ``core/batch_sim.py``
+packs itself, keeps its own checks and raises on a view.)
 """
 from __future__ import annotations
 
@@ -48,13 +52,24 @@ def _nvcc() -> str:
                        "source with the CUDA toolkit")
 
 
-def on_card(name, *tensors) -> bool:
-    """True for CUDA tensors (after checking what the kernels need: a card,
-    contiguous and 16-byte aligned inputs on one device), False for CPU
-    tensors; any other device raises."""
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when it is contiguous and 16-byte aligned, else a
+    contiguous, 16-byte-aligned copy (a transposed or strided view, or a
+    contiguous slice that starts off a 16-byte boundary)."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    # one copy into a new allocation, which starts aligned
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def card_inputs(name, *tensors):
+    """``(on the card, tensors)``.  CUDA tensors on one device, with a card
+    present, launch the kernel, each passed through :func:`aligned`; CPU
+    tensors take the plain version and come back as they are; any other
+    device raises."""
     dev = tensors[0].device
     if dev.type == "cpu":
-        return False
+        return False, tensors
     if dev.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {dev}")
     if not torch.cuda.is_available():
@@ -63,11 +78,7 @@ def on_card(name, *tensors) -> bool:
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"{name}: inputs on {t.device} and {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: inputs must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: inputs must be 16-byte aligned")
-    return True
+    return True, tuple(aligned(t) for t in tensors)
 
 
 class CudaLibrary:

@@ -8,19 +8,24 @@ multiple of its block.  It launches the kernel for CUDA tensors (on the
 current stream, without synchronizing) and runs
 :func:`flash_attention_ref` for CPU tensors.  ``block_q``/``block_k``
 choose the plain version's blocking, as they choose the Pallas kernel's;
-the CUDA kernel tiles by its own 64 x 64 and gives the same function.  On
-the card ``D`` is at most :data:`MAX_D` and q, k, v share one dtype (f32
-or bf16); the plain version takes any.  ``launches`` counts the kernel
-launches.
+the CUDA kernel tiles by its own (64 queries, and 64 keys in bf16 or 32 in
+f32) and gives the same function.  On the card ``D`` is at most
+:data:`MAX_D` and q, k, v share one dtype (f32 or bf16); the plain version
+takes any.  The kernel is built for a few head dims (16, 32, 64, 80, 96,
+128); any other ``D`` is zero-padded to the next of them, which the scores
+and the output do not see.  CUDA inputs that are views (transposed,
+strided, or off 16-byte alignment) are copied first; other inputs are
+used in place.  ``launches`` counts the kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels._build import DTYPE_CODES as DTYPES
-from repro_torch.kernels._build import CudaLibrary, on_card
+from repro_torch.kernels._build import CudaLibrary, card_inputs
 
 NEG_INF = -1e30
 MAX_D = 128            # FA_MAX_D in the CUDA source
@@ -34,6 +39,8 @@ def _bind(lib):
         ctypes.c_float, i32, i32, vp]
     lib.flash_attention_launch.restype = ctypes.c_int
     lib.flash_attention_max_d.restype = ctypes.c_int
+    lib.flash_attention_head_dim.argtypes = [i32]
+    lib.flash_attention_head_dim.restype = ctypes.c_int
     if lib.flash_attention_max_d() != MAX_D:
         raise RuntimeError("kernel library disagrees on MAX_D")
 
@@ -66,7 +73,8 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, block_q: int = 128,
     Returns (B, Hq, Sq, D) in q's dtype."""
     global launches
     B, Hq, Hkv, Sq, Sk, D = _shapes(q, k, v, block_q, block_k)
-    if not on_card("flash_attention_fwd", q, k, v):
+    card, (q, k, v) = card_inputs("flash_attention_fwd", q, k, v)
+    if not card:
         return flash_attention_ref(q, k, v, causal=causal, block_q=block_q,
                                    block_k=block_k)
     if D > MAX_D:
@@ -76,15 +84,19 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, block_q: int = 128,
         raise TypeError(f"the flash attention kernel takes q, k, v all "
                         f"float32 or all bfloat16, got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
+    if q.numel() == 0:
+        return torch.empty_like(q)
+    lib, _ = LIBRARY.load()
+    Dk = lib.flash_attention_head_dim(D)     # the instance D runs at
+    if Dk != D:                              # zero columns add nothing
+        q, k, v = (F.pad(t, (0, Dk - D)) for t in (q, k, v))
     out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
     LIBRARY.launch("flash_attention_launch", q.device, q.data_ptr(),
                    k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq, Hkv,
-                   Sq, Sk, D, float(D ** -0.5), int(bool(causal)),
+                   Sq, Sk, Dk, float(D ** -0.5), int(bool(causal)),
                    DTYPES[q.dtype])
     launches += 1
-    return out
+    return out if Dk == D else out[..., :D].contiguous()
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, block_q: int = 128,

@@ -23,7 +23,8 @@ check a blocker use too) and call the inner entry points :func:`mxu_chain`,
 their input tensors.  Each inner entry point launches its CUDA kernel for a
 CUDA tensor (on the current stream, without synchronizing) and runs its
 plain version (``*_ref``) for a CPU tensor.  ``launches`` counts the kernel
-launches per unit.
+launches per unit.  CUDA inputs that are views (transposed, strided, or off
+16-byte alignment) are copied first; other inputs are used in place.
 
 Where the kernels differ from the TPU kernels:
 
@@ -43,8 +44,7 @@ import ctypes
 import torch
 
 from repro_torch.core.device_mesh import resolve_device
-from repro_torch.kernels._build import CudaLibrary
-from repro_torch.kernels._build import on_card as _on_card
+from repro_torch.kernels._build import CudaLibrary, card_inputs
 
 TILE = 128
 MXU_MAX_TILE = 128      # MXU_MAX_TILE in the CUDA source
@@ -91,7 +91,8 @@ def mxu_chain(a, b, iters: int):
     if a.dim() != 2 or a.shape[0] != a.shape[1] or b.shape != a.shape:
         raise ValueError(f"a and b must be one square (tile, tile) shape, "
                          f"got {tuple(a.shape)} and {tuple(b.shape)}")
-    if not _on_card("mxu_chain", a, b):
+    card, (a, b) = card_inputs("mxu_chain", a, b)
+    if not card:
         return mxu_chain_ref(a, b, iters)
     tile = a.shape[0]
     if tile % 16 or not 16 <= tile <= MXU_MAX_TILE:
@@ -117,17 +118,20 @@ def mxu_blocker(iters: int = 64, tile: int = TILE, *, device=None):
 
 # --------------------------------------------------------------------- VPU
 def _elementwise(name, x):
+    """``(on the card, x)``, with a CUDA view copied (:func:`card_inputs`)."""
     _check("x", x)
     if x.dim() != 2 or x.shape[1] != TILE:
         raise ValueError(f"{name}: x must be (rows, {TILE}), got "
                          f"{tuple(x.shape)}")
-    return _on_card(name, x)
+    card, (x,) = card_inputs(name, x)
+    return card, x
 
 
 def vpu_chain(x, iters: int):
     """``iters`` steps of ``acc = acc * 1.000001 + 0.5`` from ``acc = x``,
     ``x`` f32 ``(rows, 128)``."""
-    if not _elementwise("vpu_chain", x):
+    on_card, x = _elementwise("vpu_chain", x)
+    if not on_card:
         return vpu_chain_ref(x, iters)
     out = torch.empty_like(x)
     _launch("VPU", "vpu_chain_launch", x.device, x.data_ptr(),
@@ -152,7 +156,8 @@ def vpu_blocker(iters: int = 256, rows: int = 8, *, device=None):
 def sfu_chain(x, iters: int):
     """``iters`` steps of ``acc = rsqrt(acc + 1.5)`` from ``acc = x``,
     ``x`` f32 ``(rows, 128)``."""
-    if not _elementwise("sfu_chain", x):
+    on_card, x = _elementwise("sfu_chain", x)
+    if not on_card:
         return sfu_chain_ref(x, iters)
     out = torch.empty_like(x)
     _launch("SFU", "sfu_chain_launch", x.device, x.data_ptr(),
@@ -175,7 +180,8 @@ def sfu_blocker(iters: int = 128, rows: int = 8, *, device=None):
 # --------------------------------------------------------------------- LSU
 def lsu_stream(x):
     """``x + 1`` streamed through memory, ``x`` f32 ``(rows, 128)``."""
-    if not _elementwise("lsu_stream", x):
+    on_card, x = _elementwise("lsu_stream", x)
+    if not on_card:
         return lsu_stream_ref(x)
     out = torch.empty_like(x)
     _launch("LSU", "lsu_stream_launch", x.device, x.data_ptr(),

@@ -6,8 +6,10 @@ in f32, ``x * rsqrt(mean(x**2) + eps) * w``, rounded into x's dtype.
 :func:`rmsnorm` keeps the reference's signature with ``block_rows`` gone:
 it launches the kernel for CUDA tensors (on the current stream, without
 synchronizing) and runs :func:`rmsnorm_ref` for CPU tensors.  The kernel
-takes any row count without padding (one warp a row) and any ``d``.
-``launches`` counts the kernel launches.
+takes any row count without padding (one warp a row) and any ``d``.  CUDA
+inputs that are views (transposed, strided, or off 16-byte alignment, such
+as ``x[1:]`` of an f32 ``(rows, 21)`` tensor) are copied first; other
+inputs are used in place.  ``launches`` counts the kernel launches.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels._build import DTYPE_CODES as DTYPES
-from repro_torch.kernels._build import CudaLibrary, on_card
+from repro_torch.kernels._build import CudaLibrary, card_inputs
 
 
 launches = 0
@@ -46,7 +48,8 @@ def rmsnorm(x, w, eps: float = 1e-5):
     """x: (..., d); w: (d,).  Returns x's shape and dtype."""
     global launches
     _check(x, w)
-    if not on_card("rmsnorm", x, w):
+    card, (x, w) = card_inputs("rmsnorm", x, w)
+    if not card:
         return rmsnorm_ref(x, w, eps)
     d = x.shape[-1]
     out = torch.empty_like(x)

@@ -10,7 +10,10 @@ without synchronizing) and runs :func:`ssd_scan_ref` for CPU tensors.  On
 the card ``p`` is at most :data:`MAX_P` and ``n`` at most :data:`MAX_N`, x
 is f32 or bf16, B and C share one dtype (f32 or bf16), and dt and A are
 read as f32 (the wrapper casts them if they are not); the plain version
-takes any.  ``launches`` counts the kernel launches.
+takes any.  CUDA inputs that are views (transposed, strided, or off
+16-byte alignment, such as B and C split out of one projection) are copied
+first; other inputs are used in place.  ``launches`` counts the kernel
+launches.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels._build import DTYPE_CODES as DTYPES
-from repro_torch.kernels._build import CudaLibrary, on_card
+from repro_torch.kernels._build import CudaLibrary, card_inputs
 
 MAX_P = 64             # SSD_MAX_P in the CUDA source
 MAX_N = 128            # SSD_MAX_N
@@ -69,7 +72,8 @@ def ssd_scan(x, dt, A, B, C, chunk: int):
     state: (b, h, p, n) f32)."""
     global launches
     b, s, h, p, g, n, q = _shapes(x, dt, A, B, C, chunk)
-    if not on_card("ssd_scan", x, dt, A, B, C):
+    card, (x, dt, A, B, C) = card_inputs("ssd_scan", x, dt, A, B, C)
+    if not card:
         return ssd_scan_ref(x, dt, A, B, C, chunk)
     if p > MAX_P or n > MAX_N:
         raise ValueError(f"the SSD kernel takes p <= {MAX_P} and n <= "

@@ -77,6 +77,29 @@ def test_imports_with_jax_and_repro_poisoned():
     assert proc.stdout.strip() == "ok"
 
 
+@pytest.mark.parametrize("card_file", sorted(
+    p.name for p in (SRC.parent / "tests").glob("test_torch_card_*.py")))
+def test_card_test_files_import_with_jax_and_repro_poisoned(card_file):
+    """Each card test file imports where ``import jax`` and ``import repro``
+    fail, as on the card's host, which has no jax."""
+    tests = SRC.parent / "tests"
+    code = (
+        "import sys, importlib.util\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None\n"
+        f"spec = importlib.util.spec_from_file_location("
+        f"'card_tests', {str(tests / card_file)!r})\n"
+        "mod = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(mod)\n"
+        "assert any(n.startswith('test_') for n in vars(mod))\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 def test_sources_never_mention_the_reference_package_in_imports():
     root = SRC / "repro_torch"
     for path in root.rglob("*.py"):

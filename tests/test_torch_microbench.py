@@ -13,11 +13,11 @@ a seed and handed to both.  Tolerances, with their reasons:
 * SFU: rtol 1e-6 (the chain converges to a fixed point).
 * LSU: exact.
 
-The CUDA kernels themselves are held against their plain versions by the
-``cuda``-marked tests at the end, which skip without a card and run on one
-(with jax installed) with
+The CUDA kernels themselves are held against their plain versions on the
+card by ``tests/test_torch_card_microbench.py``, which imports no jax, so
+that the card's host collects it:
 
-    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_microbench.py
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_card_*.py
 """
 import functools
 
@@ -195,47 +195,3 @@ def test_wrappers_reject_what_they_do_not_take():
                      torch.zeros((16, 16), device="meta"), 1)
     with pytest.raises(ValueError, match="cuda or cpu"):
         pm.lsu_stream(x.to("meta"))
-
-
-# ------------------------------------------------------------- on the card
-@pytest.fixture
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (CUDA kernel, no CPU mode)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("unit,kw", [
-    ("MXU", {}), ("MXU", {"iters": 5, "tile": 48}),
-    ("VPU", {}), ("VPU", {"rows": 2112}),
-    ("SFU", {}), ("SFU", {"rows": 2112}),
-    ("LSU", {}), ("LSU", {"rows": 1 << 17}), ("LSU", {"rows": 1000}),
-])
-def test_kernel_equals_plain_version_on_the_card(card, unit, kw):
-    before = pm.launches[unit]
-    got = pm.BLOCKERS[unit](**kw, device=card)
-    torch.cuda.synchronize()
-    assert pm.launches[unit] == before + 1
-    want = pm.BLOCKERS[unit](**kw, device="cpu")
-    _close(unit, got.cpu().numpy(), want.numpy())
-
-
-@pytest.mark.cuda
-def test_mxu_kernel_on_an_orthogonal_nonsymmetric_b(card):
-    rng = np.random.default_rng(0)
-    a = torch.from_numpy(rng.standard_normal((128, 128)).astype(np.float32))
-    b = torch.from_numpy(_orthogonal(rng, 128))
-    got = pm.mxu_chain(a.to(card), b.to(card), 64)
-    want = pm.mxu_chain_ref(a.to(card), b.to(card), 64)
-    torch.cuda.synchronize()
-    assert (got - want).abs().max().item() <= MXU_ORTH_ATOL
-
-
-@pytest.mark.cuda
-def test_mxu_kernel_rejects_tiles_it_cannot_hold(card):
-    for tile in (8, 24, 144):
-        a = torch.zeros((tile, tile), device=card)
-        with pytest.raises(ValueError, match="multiple of 16"):
-            pm.mxu_chain(a, a, 1)

@@ -17,17 +17,18 @@ are identical.  Tolerances (each both atol and rtol), the reference tests':
   recurrence: 1e-3; the port's ``ssd_chunked``/``ssd_step`` against the
   reference's: 1e-5 (the same ops in f32, summed in another order).
 
-The CUDA kernels themselves are held against their plain versions by the
-``cuda``-marked tests at the end, which skip without a card and run on one
-(with jax installed) with
+The CUDA kernels themselves are held against their plain versions on the
+card by ``tests/test_torch_card_ops.py``, which imports no jax, so that
+the card's host collects it:
 
-    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_ops.py
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_card_*.py
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro.kernels import ops as r_ops
 from repro.kernels import ref as r_ref
@@ -287,7 +288,6 @@ def test_wrappers_keep_the_reference_checks():
 
 
 def _fake_cuda(*shapes, dtype=torch.float32):
-    from torch._subclasses.fake_tensor import FakeTensorMode
     with FakeTensorMode():
         return [torch.empty(s, dtype=dtype, device="cuda") for s in shapes]
 
@@ -307,7 +307,9 @@ def test_card_limits_raise_before_any_launch(monkeypatch):
     kb, = _fake_cuda((1, 1, 64, 64), dtype=torch.bfloat16)
     with pytest.raises(TypeError, match="all float32 or all bfloat16"):
         p_fa.flash_attention_fwd(q, kb, kb)
-    with pytest.raises(ValueError, match="contiguous"):
+    # a view is copied (in the fake tensors' mode) and goes on to the kernel
+    # library, which cannot build here
+    with q.fake_mode, pytest.raises((RuntimeError, OSError), match="nvcc"):
         p_fa.flash_attention_fwd(q.transpose(2, 3), kv, kv)
     x, dt, A, B = _fake_cuda((1, 32, 2, 128), (1, 32, 2), (2,),
                              (1, 32, 1, 16))
@@ -319,87 +321,3 @@ def test_card_limits_raise_before_any_launch(monkeypatch):
     with pytest.raises((RuntimeError, OSError)):
         p_rn.rmsnorm(x, w)
     assert (p_fa.launches, p_rn.launches, p_sd.launches) == before
-
-
-# ------------------------------------------------------------- on the card
-@pytest.fixture
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (CUDA kernel, no CPU mode)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal,dtype", FLASH_CASES)
-def test_flash_kernel_equals_plain_version_on_the_card(card, B, Hq, Hkv, Sq,
-                                                       Sk, D, causal, dtype):
-    rng = np.random.default_rng(0)
-    q, k, v = (_both(_normal(rng, s), dtype)[1].to(card) for s in
-               ((B, Hq, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D)))
-    before = p_fa.launches
-    got = p_fa.flash_attention_fwd(q, k, v, causal=causal, block_q=32,
-                                   block_k=32)
-    assert p_fa.launches == before + 1
-    want = p_fa.flash_attention_ref(q, k, v, causal=causal, block_q=32,
-                                    block_k=32)
-    _close(got.cpu(), want.cpu(), FLASH_TOL[dtype])
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("rows,d", [(32, 64), (100, 128), (7, 16), (5, 21)])
-@pytest.mark.parametrize("dtype", ["f32", "bf16"])
-def test_rmsnorm_kernel_equals_plain_version_on_the_card(card, rows, d,
-                                                         dtype):
-    rng = np.random.default_rng(3)
-    x = _both(_normal(rng, (rows, d)), dtype)[1].to(card)
-    w = torch.from_numpy(1 + 0.1 * _normal(rng, (d,))).to(card)
-    before = p_rn.launches
-    got = p_rn.rmsnorm(x, w)
-    assert p_rn.launches == before + 1
-    _close(got.cpu(), p_rn.rmsnorm_ref(x, w).cpu(), RMS_TOL[dtype])
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,s,h,g,p,n,chunk", SSD_SHAPES)
-@pytest.mark.parametrize("dtype", ["f32", "bf16"])
-def test_ssd_kernel_equals_plain_version_on_the_card(card, b, s, h, g, p, n,
-                                                     chunk, dtype):
-    _, t = _ssd_inputs(1, b, s, h, g, p, n, dtype)
-    t = [a.to(card) for a in t]
-    before = p_sd.launches
-    y, st = p_sd.ssd_scan(*t, chunk)
-    assert p_sd.launches == before + 1
-    want_y, want_st = p_sd.ssd_scan_ref(*t, chunk)
-    _close(y.cpu(), want_y.cpu(), SSD_TOL[dtype])
-    _close(st.cpu(), want_st.cpu(), SSD_TOL[dtype])
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("rows,d", [(32, 64), (5, 21)])
-@pytest.mark.parametrize("dtype", ["f32", "bf16"])
-def test_rmsnorm_kernel_with_bf16_weight_on_the_card(card, rows, d, dtype):
-    rng = np.random.default_rng(4)
-    x = _both(_normal(rng, (rows, d)), dtype)[1].to(card)
-    w = torch.from_numpy(1 + 0.1 * _normal(rng, (d,))).to(card,
-                                                          torch.bfloat16)
-    got = p_rn.rmsnorm(x, w)
-    _close(got.cpu(), p_rn.rmsnorm_ref(x, w).cpu(), RMS_TOL[dtype])
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,s,h,g,p,n,chunk", SSD_SHAPES)
-@pytest.mark.parametrize("bf16_part", ["x", "BC"])
-def test_ssd_kernel_with_mixed_dtypes_on_the_card(card, b, s, h, g, p, n,
-                                                  chunk, bf16_part):
-    """x in one dtype and B, C in the other, held to the bf16 tolerance."""
-    _, (x, dt, A, B, C) = _ssd_inputs(1, b, s, h, g, p, n, "f32")
-    if bf16_part == "x":
-        x = x.to(torch.bfloat16)
-    else:
-        B, C = B.to(torch.bfloat16), C.to(torch.bfloat16)
-    t = [a.to(card) for a in (x, dt, A, B, C)]
-    y, st = p_sd.ssd_scan(*t, chunk)
-    want_y, want_st = p_sd.ssd_scan_ref(*t, chunk)
-    _close(y.cpu(), want_y.cpu(), SSD_TOL["bf16"])
-    _close(st.cpu(), want_st.cpu(), SSD_TOL["bf16"])
