@@ -488,12 +488,21 @@ def phase_main_chunks(machines, launches):
         ms = _time_ms(wd.wave_dispatch, args, reps=20)
         plain_ms = _time_ms(wd.wave_dispatch_ref, args, reps=1)
         bound_ms, bound_by = _bound_ms(args)
+        device_ms = _device_ms(wd.wave_dispatch, args, 20, bound_ms)
+        # the kernel walks each block's rows up to its last valid one: the
+        # longest walk is the chunk's last row with any valid lane
+        rows = torch.arange(S, device=args[4].device)[:, None]
+        walk = int(torch.where(args[4], rows, -1).max()) + 1
         log(f"[kernel] {label} main-path chunk ({name}, S={S} E={E} R={R} "
-            f"M={M} P={P}, {int(args[4].sum())} of {S * E} rows valid): "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
-            f"{bound_ms:.6f} ms ({bound_by})")
-        out[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                      "bound_by": bound_by, "shape": [S, E, R, M, P]}
+            f"M={M} P={P}, {int(args[4].sum())} of {S * E} rows valid, "
+            f"{wd.port_width(P)}-port instance, {wd.rows_per_tile(R, M)} "
+            f"rows a tile): kernel {ms:.4f} ms a call (device "
+            f"{device_ms:.4f} ms a launch, 20 back to back; {walk} rows "
+            f"walked, {device_ms * 1e6 / walk:.1f} ns a step), plain "
+            f"{plain_ms:.2f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+        out[label] = {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "rows_walked": walk, "shape": [S, E, R, M, P]}
     out["max_abs_err"] = max_err
     out["campaign_kernel_ms"] = total_ms
     return out
@@ -561,7 +570,8 @@ SIZES = {
     "default": {"MXU": {"iters": 64, "tile": 128},
                 "VPU": {"iters": 256, "rows": 8},
                 "SFU": {"iters": 128, "rows": 8}, "LSU": {"rows": 4096}},
-    # rows that fill the card (the MXU chain is one CTA at any size)
+    # rows that fill the card (the MXU chain runs one CTA a 16-row block:
+    # 8 CTAs at the reference's tile of 128, whatever the iterations)
     "fill": {"VPU": {"iters": 256, "rows": FILL_ROWS},
              "SFU": {"iters": 128, "rows": FILL_ROWS},
              "LSU": {"rows": LSU_FILL_ROWS}},
@@ -666,6 +676,11 @@ def phase_blockers():
                         f"function (rel {lib_rel:.3e})")
             if label == "default":
                 errs[unit] = abs_err
+    tile = SIZES["default"]["MXU"]["tile"]
+    ctas = mb.mxu_chain_ctas(tile)
+    log(f"[blockers] MXU kernel at tile {tile}: {ctas} CTAs, one a 16-row "
+        "block")
+    require(ctas == tile // 16, "the MXU kernel runs one CTA a 16-row block")
     rng = np.random.default_rng(0)
     a = rng.standard_normal((128, 128)).astype(np.float32)
     q = np.linalg.qr(rng.standard_normal((128, 128)))[0].astype(np.float32)
@@ -1288,7 +1303,8 @@ def main():
         "launches": launches, "max_abs_err": timing["max_abs_err"],
         "ms": big["ms"], "plain_ms": big["plain_ms"],
         "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
-        "library_ms": None, "shape_SERMP": big["shape"],
+        "library_ms": None, "device_ms": big["device_ms"],
+        "shape_SERMP": big["shape"],
         "longest_chunk": timing["longest"],
         "campaign_kernel_ms": timing["campaign_kernel_ms"],
         "campaign_wall_s": wall}]}

@@ -17,30 +17,35 @@
 // shorten a chain; each C entry point launches on the stream it is given,
 // does not synchronize, and returns cudaGetLastError().
 //
-// MXU.  What bounds it: the chain.  Each product depends on the last, so
-// the chain runs in one CTA on one SM of 132 (the bound over the whole card
-// is 2*tile^3*iters FLOP at the TF32 peak).  Design: acc and b live in
-// dynamic shared memory for the whole chain (128x128 f32 each, rows padded
-// so that fragment loads hit distinct banks; 202 KB at tile 128, above the
-// 48 KB default and within the 227 KB a block may use).  Warp w owns rows
-// 16w..16w+15 of acc and computes them with
-// mma.sync.m16n8k8.row.col.f32.tf32.tf32.f32.  Row block w of acc @ b reads
-// only row block w of acc, so a warp writes its rows back in place with no
-// block-wide barrier between steps.  Plain TF32 keeps 10 mantissa bits, and
-// 1.0001 (the reference's input) rounds to exactly 1.0 there, so every
-// operand is split x = big + small with big = tf32(x), small =
-// tf32(x - big) and the product summed as small*big + big*small + big*big
-// (3xTF32).  b is split once into shared memory; acc's fragments are split
-// as they are loaded.  The tensor cores add into their f32 accumulator
-// with truncation, which biases a long sum (measured on the H100: 2.2e-4
-// off after 64 products with an orthogonal b, against ~5e-6 for f32), so
-// only the two small terms, ~2^-11 of the total, accumulate there over a
-// whole product; each k-step's big*big term goes into a fresh accumulator
-// and is added to the running sum by an FADD, which rounds to nearest:
-// 4 FADD for every 3 mma.  tile must be a multiple of 16 (one warp per 16
-// rows, 8-column n-tiles, 8-deep k-steps) and at most MXU_MAX_TILE (two
-// sums of 16 n-tiles are 128 registers a thread; three padded 128x128
-// operands fill 202 KB of shared memory).
+// MXU.  What bounds it: the tensor cores of the SMs the chain runs on, at
+// the rate mma.sync reaches for TF32 on this card.  Each product depends on
+// the last, but row block w of acc @ b reads only row block w of acc, so
+// the tile/16 blocks of 16 rows are independent chains.  Design: one CTA a
+// row block (tile/16 CTAs: 8 of the 132 SMs at tile 128), one warp a
+// column n-tile of 8 (16 warps, 4 on each of the SM's tensor-core
+// sub-partitions), each computing its 16 x 8 piece of every product with
+// mma.sync.m16n8k8.row.col.f32.tf32.tf32.f32.  Plain TF32 keeps 10
+// mantissa bits, and 1.0001 (the reference's input) rounds to exactly 1.0
+// there, so every operand is split x = big + small with big = tf32(x),
+// small = tf32(x - big) and the product summed as small*big + big*small +
+// big*big (3xTF32).  The split is done once an element: b's when it is
+// loaded, the row block's when a product writes it, into shared memory
+// (so the 16 warps that read one A fragment do not each split it again).
+// The row block's parts sit in shared memory twice: a product reads one
+// pair and writes the other, with one block barrier an iteration.  The
+// tensor cores add into their f32 accumulator with truncation, which
+// biases a long sum (measured on the H100: 2.2e-4 off after 64 products
+// with an orthogonal b, against ~5e-6 for f32), so only the two small
+// terms, ~2^-11 of the total, accumulate there over a whole product; each
+// k-step's big*big term goes into a fresh accumulator and is added to the
+// running sum by an FADD, which rounds to nearest: 4 FADD for every 3 mma.
+// An output element's operations and their order do not depend on which
+// CTA and warp compute it, so any split of the work gives the same bits.
+// Shared memory at tile 128: five 16 x 132 planes of the row block (two
+// big, two small, one f32) and b's two 128 x 136 parts, 181,504 bytes
+// (rows padded so that fragment loads hit distinct banks).  tile must be a
+// multiple of 16 and at most MXU_MAX_TILE.  Not tried: a cluster of CTAs a
+// row block splitting its columns over more SMs.
 //
 // VPU.  What bounds it: FP32 issue.  One thread per element, a dependent
 // fmaf chain each; a grid over every element, so rows >= 2,112 fill all
@@ -61,7 +66,10 @@
 #include <stdint.h>
 
 #define MXU_MAX_TILE 128
-#define MXU_NT_MAX (MXU_MAX_TILE / 8)  // n-tiles a warp holds
+#define MXU_ROWS 16    // rows of acc a CTA owns
+#define MXU_WARPS (MXU_MAX_TILE / 8)  // warps a CTA: one 8-column n-tile each
+#define MXU_THREADS (32 * MXU_WARPS)
+#define MXU_PLANES 5   // row-block planes in shared memory
 #define MXU_PAD_A 4  // lda = tile + 4: A-fragment loads hit 32 banks
 #define MXU_PAD_B 8  // ldb = tile + 8: B-fragment loads hit 32 banks
 #define ELEM_THREADS 256
@@ -83,85 +91,98 @@ __device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4],
 }
 
 static size_t mxu_smem_bytes(int tile) {
-  return sizeof(float) * ((size_t)tile * (tile + MXU_PAD_A) +
+  return sizeof(float) * (MXU_PLANES * (size_t)MXU_ROWS * (tile + MXU_PAD_A) +
                           2 * (size_t)tile * (tile + MXU_PAD_B));
 }
 
-__global__ void __launch_bounds__(2 * MXU_MAX_TILE)
+// x = big + small, both tf32 values (as f32 bits): the 3xTF32 split.
+__device__ __forceinline__ void split_tf32(float x, float* big, float* small) {
+  const uint32_t hi = to_tf32(x);
+  *big = __uint_as_float(hi);
+  *small = __uint_as_float(to_tf32(x - __uint_as_float(hi)));
+}
+
+__global__ void __launch_bounds__(MXU_THREADS)
 mxu_chain_kernel(const float* __restrict__ a, const float* __restrict__ b,
                  float* __restrict__ out, int tile, int iters) {
   extern __shared__ float smem[];
   const int lda = tile + MXU_PAD_A, ldb = tile + MXU_PAD_B;
-  float* acc = smem;                   // tile x lda
-  float* b_big = acc + tile * lda;     // tile x ldb, tf32 values as f32
-  float* b_small = b_big + tile * ldb;  // tile x ldb
+  const int plane = MXU_ROWS * lda;
+  // planes 0, 1: the row block's tf32 big parts (read one, write the
+  // other); 2, 3: its small parts; 4: its f32 values (at the start and
+  // after the last product)
+  float* const acc = smem + 4 * plane;
+  float* const b_big = smem + MXU_PLANES * plane;  // tile x ldb
+  float* const b_small = b_big + tile * ldb;       // tile x ldb
+  const int r0 = blockIdx.x * MXU_ROWS;  // this CTA's row block
+  for (int i = threadIdx.x; i < MXU_ROWS * tile; i += blockDim.x) {
+    const int r = i / tile, c = i - r * tile;
+    const float x = a[(size_t)(r0 + r) * tile + c];
+    acc[r * lda + c] = x;
+    split_tf32(x, smem + r * lda + c, smem + 2 * plane + r * lda + c);
+  }
   for (int i = threadIdx.x; i < tile * tile; i += blockDim.x) {
     const int r = i / tile, c = i - r * tile;
-    acc[r * lda + c] = a[i];
-    const float x = b[i];
-    const float big = __uint_as_float(to_tf32(x));
-    b_big[r * ldb + c] = big;
-    b_small[r * ldb + c] = __uint_as_float(to_tf32(x - big));
+    split_tf32(b[i], b_big + r * ldb + c, b_small + r * ldb + c);
   }
   __syncthreads();
 
   // fragment coordinates (PTX ISA, mma.m16n8k8 .tf32): A a0..a3 at
   // (g, t), (g+8, t), (g, t+4), (g+8, t+4); B b0, b1 at (k=t, n=g),
-  // (k=t+4, n=g); C c0..c3 at (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)
+  // (k=t+4, n=g); C c0..c3 at (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1).
+  // Warp w computes n-tile w: columns 8w..8w+7 of the row block.
+  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int ntiles = tile / 8;
-  float* row_lo = acc + ((threadIdx.x >> 5) * 16 + g) * lda;
-  float* row_hi = row_lo + 8 * lda;
+  const bool mine = warp < tile / 8;
+  const float* bb = b_big + t * ldb + warp * 8 + g;
+  const float* bs = b_small + t * ldb + warp * 8 + g;
+  const int frag = g * lda + t;  // a0's offset in a plane
+  const int col = g * lda + warp * 8 + 2 * t;  // c0's offset in a plane
   for (int it = 0; it < iters; ++it) {
-    float c_big[MXU_NT_MAX][4], c_small[MXU_NT_MAX][4];
+    const int cur = (it & 1) * plane, nxt = plane - cur;
+    float c_big[4] = {0.f, 0.f, 0.f, 0.f}, c_small[4] = {0.f, 0.f, 0.f, 0.f};
+    if (mine) {
+      const float* ah = smem + cur + frag;
+      const float* al = smem + 2 * plane + cur + frag;
+#pragma unroll 4
+      for (int k0 = 0; k0 < tile; k0 += 8) {
+        uint32_t ab[4], as[4];
+        ab[0] = __float_as_uint(ah[k0]);
+        ab[1] = __float_as_uint(ah[8 * lda + k0]);
+        ab[2] = __float_as_uint(ah[k0 + 4]);
+        ab[3] = __float_as_uint(ah[8 * lda + k0 + 4]);
+        as[0] = __float_as_uint(al[k0]);
+        as[1] = __float_as_uint(al[8 * lda + k0]);
+        as[2] = __float_as_uint(al[k0 + 4]);
+        as[3] = __float_as_uint(al[8 * lda + k0 + 4]);
+        const uint32_t hb0 = __float_as_uint(bb[k0 * ldb]);
+        const uint32_t hb1 = __float_as_uint(bb[(k0 + 4) * ldb]);
+        const uint32_t lb0 = __float_as_uint(bs[k0 * ldb]);
+        const uint32_t lb1 = __float_as_uint(bs[(k0 + 4) * ldb]);
+        mma_tf32(c_small, as, hb0, hb1);
+        mma_tf32(c_small, ab, lb0, lb1);
+        float step[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_tf32(step, ab, hb0, hb1);
 #pragma unroll
-    for (int nt = 0; nt < MXU_NT_MAX; ++nt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) c_big[nt][q] = c_small[nt][q] = 0.f;
-    for (int k0 = 0; k0 < tile; k0 += 8) {
-      const float x[4] = {row_lo[k0 + t], row_hi[k0 + t], row_lo[k0 + t + 4],
-                          row_hi[k0 + t + 4]};
-      uint32_t a_big[4], a_small[4];
+        for (int q = 0; q < 4; ++q) c_big[q] += step[q];
+      }
+      // the new row block: its f32 values after the last product, else
+      // its tf32 parts in the other planes
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        a_big[q] = to_tf32(x[q]);
-        a_small[q] = to_tf32(x[q] - __uint_as_float(a_big[q]));
-      }
-      const float* bb = b_big + (k0 + t) * ldb + g;
-      const float* bs = b_small + (k0 + t) * ldb + g;
-#pragma unroll
-      for (int nt = 0; nt < MXU_NT_MAX; ++nt) {  // constant indices keep
-        if (nt < ntiles) {                       // the sums in registers
-          const uint32_t hb0 = __float_as_uint(bb[nt * 8]);
-          const uint32_t hb1 = __float_as_uint(bb[nt * 8 + 4 * ldb]);
-          const uint32_t lb0 = __float_as_uint(bs[nt * 8]);
-          const uint32_t lb1 = __float_as_uint(bs[nt * 8 + 4 * ldb]);
-          mma_tf32(c_small[nt], a_small, hb0, hb1);
-          mma_tf32(c_small[nt], a_big, lb0, lb1);
-          float step[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_tf32(step, a_big, hb0, hb1);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) c_big[nt][q] += step[q];
-        }
+        const int at = col + (q >> 1) * 8 * lda + (q & 1);
+        const float x = c_big[q] + c_small[q];
+        if (it + 1 == iters)
+          acc[at] = x;
+        else
+          split_tf32(x, smem + nxt + at, smem + 2 * plane + nxt + at);
       }
     }
-    __syncwarp();  // every lane has read the warp's rows of acc
-#pragma unroll
-    for (int nt = 0; nt < MXU_NT_MAX; ++nt) {
-      if (nt < ntiles) {
-        const int col = nt * 8 + 2 * t;
-        row_lo[col] = c_big[nt][0] + c_small[nt][0];
-        row_lo[col + 1] = c_big[nt][1] + c_small[nt][1];
-        row_hi[col] = c_big[nt][2] + c_small[nt][2];
-        row_hi[col + 1] = c_big[nt][3] + c_small[nt][3];
-      }
-    }
-    __syncwarp();  // the new rows are visible to the whole warp
+    __syncthreads();  // the new row block is whole; the old one is free
   }
-  const int r0 = (threadIdx.x >> 5) * 16;
-  for (int i = lane; i < 16 * tile; i += 32) {
-    const int r = r0 + i / tile, col = i % tile;
-    out[(size_t)r * tile + col] = acc[r * lda + col];
+  for (int i = threadIdx.x; i < MXU_ROWS * tile; i += blockDim.x) {
+    const int r = i / tile, c = i - r * tile;
+    out[(size_t)(r0 + r) * tile + c] = acc[r * lda + c];
   }
 }
 
@@ -206,16 +227,23 @@ static int elem_blocks(long long n) {
 
 extern "C" int microbench_mxu_max_tile(void) { return MXU_MAX_TILE; }
 
+// CTAs a launch at `tile` runs: one a row block (0 for a tile the kernel
+// does not take).
+extern "C" int mxu_chain_ctas(int tile) {
+  if (tile < MXU_ROWS || tile > MXU_MAX_TILE || tile % MXU_ROWS) return 0;
+  return tile / MXU_ROWS;
+}
+
 extern "C" int mxu_chain_launch(const void* a, const void* b, void* out,
                                 int tile, int iters, void* stream) {
-  if (tile < 16 || tile > MXU_MAX_TILE || tile % 16)
-    return cudaErrorInvalidValue;
+  const int ctas = mxu_chain_ctas(tile);
+  if (ctas == 0) return cudaErrorInvalidValue;
   const size_t smem = mxu_smem_bytes(tile);
   cudaError_t err = cudaFuncSetAttribute(
       mxu_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  mxu_chain_kernel<<<1, 2 * tile, smem, (cudaStream_t)stream>>>(
+  mxu_chain_kernel<<<ctas, MXU_THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)a, (const float*)b, (float*)out, tile, iters);
   return (int)cudaGetLastError();
 }

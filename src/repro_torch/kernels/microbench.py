@@ -29,8 +29,9 @@ launches per unit.  CUDA inputs that are views (transposed, strided, or off
 Where the kernels differ from the TPU kernels:
 
 * ``mxu_chain`` takes ``tile`` a multiple of 16, at most :data:`MXU_MAX_TILE`
-  (one CTA holds ``acc`` and ``b`` in shared memory); the plain version
-  takes any square tile.
+  (one CTA a block of 16 rows, which holds its rows of ``acc`` and all of
+  ``b`` in shared memory; :func:`mxu_chain_ctas`); the plain version takes
+  any square tile.
 * ``vpu_chain``'s kernel contracts ``acc * 1.000001 + 0.5`` into one fused
   multiply-add, so it rounds once where the plain version rounds twice
   (1.2e-7 relative apart after 256 steps from 1.0).
@@ -63,6 +64,8 @@ def _bind(lib):
         fn.argtypes = args
         fn.restype = ctypes.c_int
     lib.microbench_mxu_max_tile.restype = ctypes.c_int
+    lib.mxu_chain_ctas.argtypes = [i32]
+    lib.mxu_chain_ctas.restype = ctypes.c_int
     if lib.microbench_mxu_max_tile() != MXU_MAX_TILE:
         raise RuntimeError("kernel library disagrees on MXU_MAX_TILE")
 
@@ -102,6 +105,12 @@ def mxu_chain(a, b, iters: int):
     _launch("MXU", "mxu_chain_launch", a.device, a.data_ptr(), b.data_ptr(),
             out.data_ptr(), tile, int(iters))
     return out
+
+
+def mxu_chain_ctas(tile: int) -> int:
+    """CTAs the MXU kernel's launch runs at ``tile``: one a block of 16 rows
+    (0 for a tile it does not take).  Builds the library."""
+    return LIBRARY.load()[0].mxu_chain_ctas(tile)
 
 
 def mxu_chain_ref(a, b, iters: int):

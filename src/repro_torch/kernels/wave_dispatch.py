@@ -18,20 +18,25 @@ Both take the wave row-major, one column per lane:
 
 and return ``done`` int32 ``(S, E)`` and ``counts`` int32 ``(E, P)``.
 
+A producer row at or after its reader (``j <= prod < S``) reads 0, as the
+TPU kernel's zero-initialised ``done`` gives.
+
 The kernel is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface at first use, and loaded with ``ctypes`` (see
-``kernels/_build.py``).
+``kernels/_build.py``).  :func:`port_width` and :func:`rows_per_tile` report
+the instance and the tile a launch takes.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels._build import CudaLibrary
 
 MAX_PORTS = 32          # MAXP in the CUDA source
-MAX_MASKS = 12 * 1024   # port masks held in 48 KB of shared memory
+MAX_ROWS = 2**27 - 1    # rows: a count * 32 + port index fits 32 bits
 _INT32_MAX = 2**31 - 1
 
 # kernel launches made by wave_dispatch (the CUDA path only)
@@ -44,11 +49,33 @@ def _bind(lib):
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.wave_dispatch_max_ports.restype = ctypes.c_int
+    lib.wave_dispatch_port_width.argtypes = [ctypes.c_int]
+    lib.wave_dispatch_port_width.restype = ctypes.c_int
+    lib.wave_dispatch_rows_per_tile.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.wave_dispatch_rows_per_tile.restype = ctypes.c_int
+    lib.wave_dispatch_max_rows.restype = ctypes.c_int
+    if lib.wave_dispatch_max_rows() != MAX_ROWS:
+        raise RuntimeError("kernel library disagrees on MAX_ROWS")
     if lib.wave_dispatch_max_ports() != MAX_PORTS:
         raise RuntimeError("kernel library disagrees on MAXP")
 
 
 LIBRARY = CudaLibrary("wave_dispatch.cu", _bind)
+
+
+@functools.lru_cache(maxsize=None)
+def port_width(P: int) -> int:
+    """The port width of the kernel instance a launch with ``P`` ports runs
+    (8 up to 8 ports, else 32; 0 outside 1..32).  Builds the library."""
+    return LIBRARY.load()[0].wave_dispatch_port_width(P)
+
+
+@functools.lru_cache(maxsize=None)
+def rows_per_tile(R: int, M: int) -> int:
+    """Rows of per-row inputs a stage of the kernel holds at ``R`` reads and
+    ``M`` port masks (0: they do not fit in shared memory, which bounds
+    both).  Builds the library."""
+    return LIBRARY.load()[0].wave_dispatch_rows_per_tile(R, M)
 
 
 def _check(issue, mask_id, lat, blk, valid, prod, delta, lut):
@@ -94,11 +121,13 @@ def wave_dispatch(issue, mask_id, lat, blk, valid, prod, delta, lut):
     M, P = lut.shape
     if not 1 <= P <= MAX_PORTS:
         raise ValueError(f"the kernel takes 1..{MAX_PORTS} ports, got {P}")
-    if M > MAX_MASKS:
-        raise ValueError(f"the kernel takes at most {MAX_MASKS} port masks, "
-                         f"got {M}")
     if R < 1:
         raise ValueError("prod must have at least one read column")
+    if S > MAX_ROWS:
+        raise ValueError(f"the kernel takes at most {MAX_ROWS} rows, got {S}")
+    if rows_per_tile(R, M) == 0:
+        raise ValueError(f"{R} read columns and {M} port masks do not fit "
+                         "in the kernel's shared memory")
     args = (issue, mask_id, lat, blk, valid, prod, delta, lut)
     for name, t in zip(("issue", "mask_id", "lat", "blk", "valid", "prod",
                         "delta", "lut"), args):

@@ -23,6 +23,8 @@ from repro_torch.core.simulator import Instr as PInstr
 from repro_torch.core.simulator import SimMachine as PSim
 from repro_torch.kernels import wave_dispatch as wd
 
+import test_torch_card_wave as card_wave
+
 
 def _port_codes(codes):
     """The same wave as the port's instruction objects (repeated bodies
@@ -286,6 +288,101 @@ def test_plain_version_gates_stale_rows_on_valid():
                                   ref_done[pk.valid])
     assert not done.numpy()[stale].any()
     np.testing.assert_array_equal(counts.numpy(), ref_counts)
+
+
+def _far_codes():
+    """Loops whose body reads a register written 131..200 μop rows back:
+    every body's last ADD reads the IMUL result at the body's start."""
+    def code(gap, reps):
+        body = [RInstr("IMUL_R64_R64", {"op1": "R0", "op2": "R1"})]
+        body += [RInstr("ADD_R64_R64", {"op1": f"R{2 + i % 12}",
+                                        "op2": f"R{2 + (i + 5) % 12}"})
+                 for i in range(gap)]
+        body.append(RInstr("ADD_R64_R64", {"op1": "R1", "op2": "R0"}))
+        return body * reps
+    return [code(150, 3), code(200, 2), code(131, 5), code(40, 7)]
+
+
+@pytest.mark.parametrize("uarch", ["sim_skl", "sim_hsw", "sim_snb"])
+def test_plain_version_on_producers_beyond_the_kernels_window(uarch):
+    """Producers more than 128 rows back (past the kernel's shared-memory
+    window of ``done``, which then reads them from global memory): the plain
+    version equals the reference's numpy kernel on a reference-packed
+    chunk."""
+    m, pk = _reference_pack(_sim(uarch), _far_codes())
+    S = pk.issue.shape[0]
+    j = np.arange(S)[:, None, None]
+    far = (pk.prod >= 0) & pk.valid[..., None] & (j - pk.prod > 128)
+    assert far.sum() >= 4
+    ref_done, ref_counts = m._kernel_numpy(pk)
+    done, counts = wd.wave_dispatch_ref(*_as_torch(pk, m._comp))
+    np.testing.assert_array_equal(done.numpy()[pk.valid],
+                                  ref_done[pk.valid])
+    np.testing.assert_array_equal(counts.numpy(), ref_counts)
+
+
+def test_plain_version_reads_zero_from_a_producer_at_or_after_its_row():
+    """``j <= prod < S`` reads 0 (that row of ``done`` is not written yet),
+    the same as ``prod = -1``; ``delta`` is still added."""
+    S, E = 4, 1
+    z = torch.zeros((S, E), dtype=torch.int32)
+    lat = torch.full((S, E), 3, dtype=torch.int32)
+    lut = torch.ones((1, 2), dtype=torch.bool)
+    delta = torch.full((S, E, 1), 5, dtype=torch.int32)
+    valid = torch.ones((S, E), dtype=torch.bool)
+    none = torch.full((S, E, 1), -1, dtype=torch.int32)
+    for prod in ([[0], [3], [2], [3]], [[2], [1], [3], [3]]):
+        prod = torch.tensor(prod, dtype=torch.int32)[:, :, None]
+        done, counts = wd.wave_dispatch_ref(z, z, lat, z, valid, prod,
+                                            delta, lut)
+        want, _ = wd.wave_dispatch_ref(z, z, lat, z, valid, none, delta, lut)
+        assert done.flatten().tolist() == want.flatten().tolist() == [8] * 4
+        assert counts.tolist() == [[2, 2]]
+
+
+def _scalar_recurrence(issue, mask_id, lat, blk, valid, prod, delta, lut):
+    """The kernel's semantics (the header of ``csrc/wave_dispatch.cu``),
+    one lane and one row at a time, in Python integers wrapped to int32."""
+    def wrap(x):
+        return (x + 2**31) % 2**32 - 2**31
+    issue, mask_id, lat, blk, valid, prod, delta, lut = (
+        t.numpy().tolist() for t in (issue, mask_id, lat, blk, valid, prod,
+                                     delta, lut))
+    S, E, P = len(issue), len(issue[0]), len(lut[0])
+    done = [[0] * E for _ in range(S)]
+    counts = []
+    for e in range(E):
+        pf, cnt = [0] * P, [0] * P
+        for j in range(S):
+            ready = issue[j][e]
+            for src, d in zip(prod[j][e], delta[j][e]):
+                v = done[src][e] if 0 <= src < j else 0
+                ready = max(ready, wrap(v + d))
+            allowed = lut[mask_id[j][e]]
+            tmin, _, best = min(
+                (max(ready, pf[p]) if allowed[p] else 2**31 - 1, cnt[p], p)
+                for p in range(P))
+            if valid[j][e]:
+                done[j][e] = wrap(tmin + lat[j][e])
+                pf[best] = wrap(tmin + blk[j][e])
+                cnt[best] += 1
+        counts.append(cnt)
+    return done, counts
+
+
+@pytest.mark.parametrize("label,seed,S,E,R,P,M,kw", card_wave.CASES,
+                         ids=[c[0] for c in card_wave.CASES])
+def test_plain_version_equals_scalar_recurrence_on_synthetic_waves(
+        label, seed, S, E, R, P, M, kw):
+    """The synthetic waves the card tests hold the kernel to (far and
+    forward producers, every port width, wrapped sums, the sentinel, LUT
+    rows of no port): the plain version equals a scalar restatement of the
+    kernel's semantics."""
+    args = card_wave.synthetic_wave(seed, S, E, R, P, M, **kw)
+    done, counts = wd.wave_dispatch_ref(*args)
+    want_done, want_counts = _scalar_recurrence(*args)
+    assert done.tolist() == want_done
+    assert counts.tolist() == want_counts
 
 
 # ---------------------------------------------------------------------------

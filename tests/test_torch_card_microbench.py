@@ -9,7 +9,9 @@ and runs it:
 
 Tolerances, with their reasons (as ``tests/test_torch_microbench.py``
 states them): MXU rtol 1e-5 at the defaults, atol 1e-4 for an orthogonal,
-non-symmetric ``b`` at 64 iterations (f32 sums taken in another order);
+non-symmetric ``b`` at 64 iterations (f32 sums taken in another order), and
+1e-5 of the result's largest element at every tile the kernel takes
+(``MXU_CHAIN_TOL``);
 VPU rtol 1e-6 (the kernel contracts ``acc * 1.000001 + 0.5`` to a fused
 multiply-add, the plain version rounds twice); SFU rtol 1e-6 (the chain
 converges to a fixed point); LSU exact.
@@ -22,6 +24,7 @@ from repro_torch.kernels import microbench as pm
 
 RTOL = {"MXU": 1e-5, "VPU": 1e-6, "SFU": 1e-6, "LSU": 0.0}
 MXU_ORTH_ATOL = 1e-4
+MXU_CHAIN_TOL = 1e-5   # of max |plain|: an orthogonal b keeps |acc| ~ 1
 
 
 def _close(unit, got, want):
@@ -73,6 +76,44 @@ def test_mxu_kernel_on_an_orthogonal_nonsymmetric_b(card):
     want = pm.mxu_chain_ref(a.to(card), b.to(card), 64)
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= MXU_ORTH_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", [False, True], ids=["contiguous", "views"])
+@pytest.mark.parametrize("iters", [0, 1, 64])
+@pytest.mark.parametrize("tile", [16, 32, 64, 128])
+def test_mxu_kernel_at_every_tile(card, tile, iters, view):
+    """The chain at each tile the kernel takes (1 to 8 row blocks, so 1 to
+    8 CTAs) on an orthogonal, non-symmetric ``b``: within 1e-5 of the
+    plain version, relative to its largest element; with ``views``, ``a``
+    transposed and ``b`` off 16-byte alignment."""
+    rng = np.random.default_rng(tile + iters)
+    a = rng.standard_normal((tile, tile)).astype(np.float32)
+    b = _orthogonal(rng, tile)
+    assert np.abs(b - b.T).max() > 0.1
+    a, b = torch.from_numpy(a).to(card), torch.from_numpy(b).to(card)
+    if view:
+        a = a.t()
+        b = torch.cat([torch.zeros(1, device=card), b.flatten()])[1:]
+        b = b.reshape(tile, tile)
+        assert not a.is_contiguous() and b.data_ptr() % 16
+    before = pm.launches["MXU"]
+    got = pm.mxu_chain(a, b, iters)
+    torch.cuda.synchronize()
+    assert pm.launches["MXU"] == before + 1
+    want = pm.mxu_chain_ref(a, b, iters)
+    assert torch.isfinite(got).all()
+    err = (got - want).abs().max().item()
+    assert err <= MXU_CHAIN_TOL * want.abs().max().item(), err
+    if iters == 0:
+        assert torch.equal(got, a)
+
+
+@pytest.mark.cuda
+def test_mxu_kernel_runs_one_cta_a_row_block(card):
+    assert [pm.mxu_chain_ctas(t) for t in (16, 32, 48, 64, 128)] == \
+        [1, 2, 3, 4, 8]
+    assert [pm.mxu_chain_ctas(t) for t in (8, 24, 144)] == [0, 0, 0]
 
 
 @pytest.mark.cuda
