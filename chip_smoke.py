@@ -25,7 +25,10 @@ drives the port's three paths on the card:
   each of the three kernels is held against its plain version on the same
   card inputs (and on views: transposed, strided, off 16-byte alignment)
   and timed beside its plain version, one PyTorch call that computes the
-  same function (where there is one) and its bound.
+  same function (where there is one) and its bound.  The SSD scan's four
+  kernels are timed alone as well, and its f32 error is attributed: the
+  kernel and the f32 plain version, each against the plain version on
+  f64 copies of the inputs.
 
 Every phase prints a line; any failure exits non-zero and prints no
 result.  The last three lines are the card's name and power limit, the
@@ -137,7 +140,7 @@ def phase_build():
             f"{k} {v}" for k, v in c.items()))
         require(c[op] > 0, f"{kernel}'s SASS has no {op}")
     # flash attention runs its products on the tensor cores (every head dim,
-    # both dtypes); the SSD scan still does f32 FMAs on the CUDA cores
+    # both dtypes)
     fns = {f: c for f, c in _sass_counts(fa.LIBRARY.path).items()
            if "flash_fwd_kernel" in f}
     require(len(fns) > 0, "flash_fwd_kernel not found in the SASS")
@@ -148,15 +151,22 @@ def phase_build():
         f"{min(c['HMMA'] for c in fns.values())}-"
         f"{max(c['HMMA'] for c in fns.values())}, HGMMA "
         f"{max(c['HGMMA'] for c in fns.values())}")
-    fns = {f: c for f, c in _sass_counts(sd.LIBRARY.path).items()
-           if "ssd_scan_kernel" in f}
-    require(len(fns) > 0, "ssd_scan_kernel not found in the SASS")
-    for f, c in fns.items():
-        require(c["FFMA"] > 0 and c["HMMA"] == 0,
-                f"{f}: FFMA {c['FFMA']}, HMMA {c['HMMA']}")
-    log(f"[build] SASS ssd_scan_kernel: {len(fns)} instantiations, FFMA "
-        f"{min(c['FFMA'] for c in fns.values())}-"
-        f"{max(c['FFMA'] for c in fns.values())}, HMMA 0")
+    # so do the SSD scan's three product kernels; its state pass has no
+    # product
+    counts = _sass_counts(sd.LIBRARY.path)
+    for kernel, products in (("ssd_chunk_state", True), ("ssd_chunk_cb", True),
+                             ("ssd_chunk_scan", True),
+                             ("ssd_state_pass", False)):
+        fns = {f: c for f, c in counts.items() if kernel in f}
+        require(len(fns) > 0, f"{kernel} not found in the SASS")
+        for f, c in fns.items():
+            require((c["HMMA"] > 0) == products,
+                    f"{f}: HMMA {c['HMMA']} (products: {products})")
+        log(f"[build] SASS {kernel}: {len(fns)} instantiations, HMMA "
+            f"{min(c['HMMA'] for c in fns.values())}-"
+            f"{max(c['HMMA'] for c in fns.values())}, FFMA "
+            f"{min(c['FFMA'] for c in fns.values())}-"
+            f"{max(c['FFMA'] for c in fns.values())}")
 
 
 def phase_card_tests():
@@ -870,8 +880,11 @@ def _ops_cases():
            ("ragged rows, odd width (one element a lane)", 4093, 1001, f32)]
     m = (mamba.ssm_heads, mamba.ssm_headdim, mamba.ssm_state,
          mamba.ssm_groups, mamba.ssm_chunk)
+    z = (zamba.ssm_heads, zamba.ssm_headdim, zamba.ssm_state,
+         zamba.ssm_groups, zamba.ssm_chunk)
     ssd = [("mamba2_2_7b", 2, 4096, *m, f32),
-           ("mamba2_2_7b", 2, 4096, *m, bf16)]
+           ("mamba2_2_7b", 2, 4096, *m, bf16),
+           ("zamba2_2_7b", 2, 4096, *z, f32)]
     # held against the sequential recurrence: Mamba2 width, two chunks
     ssd_seq = ("mamba2_2_7b, 2 chunks", 2, 2 * mamba.ssm_chunk, *m, f32)
     return flash, rms, ssd, ssd_seq
@@ -907,8 +920,11 @@ def _ssd_inputs(gen, case):
 def _close(got, want, tol, atol=None):
     """Max abs error, and the largest |got - want| / (atol + tol * |want|)
     (atol defaults to tol): at most 1 where the two agree as numpy's
-    assert_allclose with these atol and rtol = tol has it."""
-    got, want = got.float(), want.float()
+    assert_allclose with these atol and rtol = tol has it.  Computed in
+    f32, or in f64 where either side is f64."""
+    wide = torch.float64 if torch.float64 in (got.dtype, want.dtype) \
+        else torch.float32
+    got, want = got.to(wide), want.to(wide)
     require(got.shape == want.shape, f"shape {tuple(got.shape)} vs "
             f"{tuple(want.shape)}")
     require(bool(torch.isfinite(got).all()), "output not finite")
@@ -963,7 +979,9 @@ def phase_ops():
                 "ssd_scan": sd.launches}
     log(f"[ops] main path: {len(flash)} + 1 flash attention calls (one with "
         f"its backward), {len(rms)} rmsnorm, {len(ssd)} + 1 ssd_scan at full "
-        f"widths in {wall:.2f} s wall; kernel launches {launches}")
+        f"widths in {wall:.2f} s wall; kernel launches {launches} (an "
+        f"ssd_scan launch is one call of {sd.KERNELS_PER_CALL} kernels: "
+        f"{', '.join(sd.PASSES)})")
     for name, n in launches.items():
         require(n > 0, f"the op layer's main path never launched {name}")
 
@@ -986,6 +1004,7 @@ def phase_ops():
             require(worst <= 1, f"{name} {case}: kernel disagrees with its "
                     "plain version")
             errs[name].append(err)
+    shares = _ssd_f64_shares(ssd, inputs["ssd_scan"], outs["ssd_scan"])
     y_seq, st_seq = ref.reference_ssd_sequential(*seq_args[:5])
     for part, got, want in (("y", seq_out[0], y_seq),
                             ("state", seq_out[1], st_seq)):
@@ -1008,7 +1027,35 @@ def phase_ops():
                 "gradient")
     _ops_views(gen)
     _ops_small_shapes(gen)
-    return launches, errs, inputs
+    return launches, errs, inputs, shares
+
+
+def _ssd_f64_shares(cases, inputs, outs):
+    """Where the SSD's f32 error comes from: the kernel's outputs and the
+    f32 plain version's, each held against the plain version on f64 copies
+    of the same inputs, as shares of the f32 tolerance (y and state, the
+    larger)."""
+    from repro_torch.kernels import ssd_scan as sd
+    tol = OPS_TOL["ssd_scan"][torch.float32]
+    shares = {}
+    for case, args, got in zip(cases, inputs, outs):
+        if case[-1] != torch.float32:
+            continue
+        wide = sd.ssd_scan_ref(*(a.double() if torch.is_tensor(a) else a
+                                 for a in args))
+        plain = sd.ssd_scan_ref(*args)
+        row = {"kernel": max(_close(g, w, tol)[1] for g, w in zip(got, wide)),
+               "plain": max(_close(g, w, tol)[1]
+                            for g, w in zip(plain, wide)),
+               "kernel_vs_plain": max(_close(g, w, tol)[1]
+                                      for g, w in zip(got, plain))}
+        shares[case[0]] = row
+        log(f"[ops] ssd_scan {case}: held against the plain version on f64 "
+            f"copies, share of the tolerance ({tol:.0e} abs + rel): kernel "
+            f"{row['kernel']:.3f}, f32 plain version {row['plain']:.3f} "
+            f"(kernel vs f32 plain {row['kernel_vs_plain']:.3f})")
+        del wide, plain
+    return shares
 
 
 def _ops_views(gen):
@@ -1070,14 +1117,17 @@ def _ops_views(gen):
             "version on a view")
 
 
-# the CPU tests' shapes (tests/test_torch_ops.py): head dims 8-32, causal
-# with Sq < Sk and Sq > Sk, a 96-key tail tile; SSD groups, tiny widths and
-# a 6-chunk scan; rmsnorm widths that take one element a lane
+# the CPU tests' shapes (tests/test_torch_ops.py, tests/test_torch_ssd.py):
+# head dims 8-32, causal with Sq < Sk and Sq > Sk, a 96-key tail tile; SSD
+# groups, tiny widths, a 6-chunk scan and single chunks with h / g up to 4;
+# rmsnorm widths that take one element a lane
 SMALL_FLASH = [(1, 2, 2, 64, 64, 16), (2, 4, 2, 128, 128, 32),
                (1, 6, 2, 96, 96, 16), (2, 2, 1, 64, 128, 8),
                (1, 3, 1, 64, 64, 20), (1, 2, 1, 128, 64, 16)]
 SMALL_SSD = [(1, 64, 2, 16, 16, 1, 16), (2, 128, 4, 32, 16, 2, 32),
-             (1, 96, 2, 8, 8, 2, 16)]       # (b, s, h, p, n, g, chunk)
+             (1, 96, 2, 8, 8, 2, 16), (1, 32, 4, 16, 16, 1, 32),
+             (2, 48, 6, 8, 16, 2, 48),
+             (1, 60, 6, 12, 20, 3, 20)]     # (b, s, h, p, n, g, chunk)
 SMALL_RMS = [(32, 64), (100, 128), (7, 16), (5, 21)]
 
 
@@ -1206,6 +1256,48 @@ OPS_ROUNDS = 3   # interleaved device-time samples of kernel and library
 LIBRARY_OFF_LIMIT = {("flash_attention", "phi3_mini_3_8b", torch.bfloat16)}
 
 
+def _ssd_stage_ms(args, reps):
+    """Each of ssd_scan's kernels launched alone on the call's inputs and
+    passes.  First each is held against its plain pass on the same inputs
+    (the f32 scratch at the f32 tolerance, y at its dtype's; the scores
+    below the diagonal only) and fails past it; then it is timed: device ms
+    a launch back to back, median of OPS_ROUNDS (the state pass on a copy,
+    which it overwrites).  Returns (ms by pass, worst share by output)."""
+    from repro_torch.kernels import ssd_scan as sd
+    x, dt, A, B, C, chunk = args
+    f32 = OPS_TOL["ssd_scan"][torch.float32]
+    shares = {}
+
+    def hold(what, got, want, tol=f32):
+        shares[what] = _close(got, want, tol)[1]
+
+    cum, local = sd.ssd_chunk_state(x, dt, A, B, chunk)
+    for what, got, want in zip(("cum", "local"), (cum, local),
+                               sd.ssd_chunk_state_ref(x, dt, A, B, chunk)):
+        hold(what, got, want)
+    want_states, want_final = sd.ssd_state_pass_ref(local, cum, chunk)
+    states, final = sd.ssd_state_pass(local, cum, chunk)
+    hold("states", states, want_states)
+    hold("final", final, want_final)
+    cb = sd.ssd_chunk_cb(B, C, chunk)
+    hold("cb", torch.tril(cb), sd.ssd_chunk_cb_ref(B, C, chunk))
+    hold("y", sd.ssd_chunk_scan(x, dt, C, cum, cb, states, chunk),
+         sd.ssd_chunk_scan_ref(x, dt, C, cum, torch.tril(cb), states, chunk),
+         OPS_TOL["ssd_scan"][x.dtype])
+    require(max(shares.values()) <= 1, "an SSD pass disagrees with its plain "
+            "pass: " + ", ".join(f"{k} {v:.3f}" for k, v in shares.items()))
+    calls = {"chunk_state": (sd.ssd_chunk_state, (x, dt, A, B, chunk)),
+             "state_pass": (sd.ssd_state_pass, (states.clone(), cum, chunk)),
+             "chunk_cb": (sd.ssd_chunk_cb, (B, C, chunk)),
+             "chunk_scan": (sd.ssd_chunk_scan,
+                            (x, dt, C, cum, cb, states, chunk))}
+    require(list(calls) == list(sd.PASSES), "the SSD passes are timed in "
+            "the order ssd_scan runs them")
+    return {k: _median([_device_ms(fn, a, reps, 0.0)
+                        for _ in range(OPS_ROUNDS)])
+            for k, (fn, a) in calls.items()}, shares
+
+
 def phase_ops_timing(inputs):
     """Each case of the op layer's main path: the kernel's event time a
     call, its device time a launch back to back, the plain version's time,
@@ -1272,6 +1364,18 @@ def phase_ops_timing(inputs):
             if lib_text and library_ms is None:
                 row["library_off_limit"] = {"ms": lib_ms, "worst": lib_worst,
                                             "max_abs": lib_err}
+            if name == "ssd_scan":
+                row["stage_device_ms"], row["stage_worst"] = _ssd_stage_ms(
+                    args, n)
+                log(f"[ops-timing] ssd_scan {case} passes alone vs their "
+                    f"plain passes, share of the limit: " + ", ".join(
+                        f"{k} {v:.3f}" for k, v in row["stage_worst"].items()))
+                log(f"[ops-timing] ssd_scan {case} kernels alone, device ms "
+                    f"a launch (median of {OPS_ROUNDS} x {n}): " + ", ".join(
+                        f"{k} {v:.4f}" for k, v in
+                        row["stage_device_ms"].items())
+                    + f"; sum {sum(row['stage_device_ms'].values()):.4f} "
+                    f"(whole call {device_ms:.4f})")
             out[name].append(row)
             lib_text = lib_text or ""
             log(f"[ops-timing] {name} {case}: kernel {ms:.4f} ms a call "
@@ -1283,6 +1387,7 @@ def phase_ops_timing(inputs):
 
 
 def main():
+    from repro_torch.kernels import ssd_scan as sd
     smi = phase_device()
     phase_build()
     card_tests = phase_card_tests()
@@ -1293,7 +1398,7 @@ def main():
     errs = phase_blockers()
     blocker_launches, profiles = phase_hardware()
     blocker_times = phase_blocker_timing()
-    ops_launches, ops_errs, ops_inputs = phase_ops()
+    ops_launches, ops_errs, ops_inputs, ssd_shares = phase_ops()
     ops_times = phase_ops_timing(ops_inputs)
     big = timing["largest"]
     report = {"kernels": [{
@@ -1340,6 +1445,12 @@ def main():
             "library_ms": head["library_ms"],
             "device_ms": head["device_ms"], "case": head["case"],
             "other_cases": rows[1:]})
+        if name == "ssd_scan":
+            report["kernels"][-1].update(
+                stage_device_ms=head["stage_device_ms"],
+                stage_worst=head["stage_worst"],
+                kernels_per_call=sd.KERNELS_PER_CALL,
+                f64_shares=ssd_shares)
     print(smi, flush=True)
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,8 @@ Inputs are f32 numpy arrays from ``np.random.default_rng(seed)``
 (``0.5 * N(0, 1)``, ``dt = softplus(.)``, ``A = -exp(0.3 * N)``), rounded
 to bf16 where a case asks for it.  Tolerances (each both atol and rtol),
 the reference tests': flash attention 2e-5 f32, 2e-2 bf16; rmsnorm 1e-5
-f32, 2e-2 bf16; SSD scan 1e-4 f32, 5e-2 bf16.
+f32, 2e-2 bf16; SSD scan 1e-4 f32, 5e-2 bf16 (its passes' f32 scratch
+1e-4 whatever the inputs' dtype).
 """
 import numpy as np
 import pytest
@@ -172,6 +173,62 @@ def test_ssd_kernel_with_mixed_dtypes_on_the_card(card, b, s, h, g, p, n,
     want_y, want_st = p_sd.ssd_scan_ref(*t, chunk)
     _close(y.cpu(), want_y.cpu(), SSD_TOL["bf16"])
     _close(st.cpu(), want_st.cpu(), SSD_TOL["bf16"])
+
+
+# ------------------------------------------------- the SSD scan's passes
+# the CPU tests' shapes; one chunk (s == chunk) with h / g > 1; widths no
+# multiple of 8 or of 4 (the kernels' plain loads instead of cp.async);
+# chunks no multiple of the 64-row tile, and odd (the scores read one
+# element at a time); Mamba2's P = 64, N = 128 and Zamba2's N = 64 over
+# several tiles.  (b, s, h, g, p, n, chunk)
+SSD_PASS_SHAPES = [
+    *SSD_SHAPES,
+    (1, 32, 4, 1, 16, 16, 32),
+    (2, 48, 6, 2, 8, 16, 48),
+    (1, 60, 6, 3, 12, 20, 20),
+    (1, 40, 3, 1, 5, 7, 20),
+    (1, 90, 2, 1, 16, 16, 45),
+    (1, 192, 2, 1, 64, 128, 96),
+    (2, 512, 4, 2, 64, 128, 256),
+    (1, 256, 2, 1, 64, 64, 128),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,g,p,n,chunk", SSD_PASS_SHAPES)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_ssd_pass_kernels_equal_their_plain_versions_on_the_card(
+        card, b, s, h, g, p, n, chunk, dtype):
+    """Each of the four kernels alone against its plain version on the same
+    inputs (the passes' f32 scratch at the f32 tolerance, y at its dtype's),
+    then the whole call, one launch of the wrapper, against the plain
+    version of the whole call."""
+    _, t = _ssd_inputs(6, b, s, h, g, p, n, dtype)
+    x, dt, A, B, C = (a.to(card) for a in t)
+    f32 = SSD_TOL["f32"]
+    cum, local = p_sd.ssd_chunk_state(x, dt, A, B, chunk)
+    cum0, local0 = p_sd.ssd_chunk_state_ref(x, dt, A, B, chunk)
+    _close(cum.cpu(), cum0.cpu(), f32)
+    _close(local.cpu(), local0.cpu(), f32)
+    mine = local0.clone()
+    states, final = p_sd.ssd_state_pass(mine, cum0, chunk)
+    assert states is mine                  # overwritten in place
+    states0, final0 = p_sd.ssd_state_pass_ref(local0, cum0, chunk)
+    _close(states.cpu(), states0.cpu(), f32)
+    _close(final.cpu(), final0.cpu(), f32)
+    cb = p_sd.ssd_chunk_cb(B, C, chunk)
+    cb0 = p_sd.ssd_chunk_cb_ref(B, C, chunk)
+    _close(torch.tril(cb).cpu(), cb0.cpu(), f32)
+    y = p_sd.ssd_chunk_scan(x, dt, C, cum0, cb0, states0, chunk)
+    y0 = p_sd.ssd_chunk_scan_ref(x, dt, C, cum0, cb0, states0, chunk)
+    assert y.dtype == x.dtype
+    _close(y.cpu(), y0.cpu(), SSD_TOL[dtype])
+    before = p_sd.launches
+    got_y, got_st = p_sd.ssd_scan(x, dt, A, B, C, chunk)
+    assert p_sd.launches == before + 1
+    want_y, want_st = p_sd.ssd_scan_ref(x, dt, A, B, C, chunk)
+    _close(got_y.cpu(), want_y.cpu(), SSD_TOL[dtype])
+    _close(got_st.cpu(), want_st.cpu(), SSD_TOL[dtype])
 
 
 # ------------------------------------------- the redesigned kernels' tiles
