@@ -2,16 +2,26 @@
 
     python3 chip_smoke.py
 
-Builds the port's five kernel libraries from ``src/repro_torch/csrc`` with
+Builds the port's six kernel libraries from ``src/repro_torch/csrc`` with
 nvcc, in parallel, runs the jax-free card tests
 (``python -m pytest -m cuda tests/test_torch_card_*.py``) against them, and
-drives the port's three paths on the card:
+drives the port's four paths on the card:
 
 * **characterize -> export.**  The wave-dispatch kernel is held bit for
   bit against its plain PyTorch version on the card; then a ``Campaign``
   over the full ``TEST_ISA`` on all three simulated uarches runs with the
   ``cuda`` backend, exported with ``model_io``, and its XML and JSON must be
   byte-identical to the same campaign on the ``torch`` backend on the CPU.
+* **predict -> serve -> query.**  The campaign's three models are served
+  by ``start_server(predict_backend="cuda")`` to a JSON and a binary
+  client (the README's block and 1,024 random blocks a uarch); the
+  payloads must be byte-identical across the wires and to the numpy
+  backend on the CPU, with device waves served and none routed back.  A
+  10,000-block wave runs in process bit-identical to numpy, and
+  ``simulate_batch`` on the card equals the CPU machine.  The port-bound
+  kernel is then held against its plain version on every wave it served
+  and on random, tie, all-zero and near-guard inputs, and timed beside its
+  plain version and its bound.
 * **hardware characterization.**  The four unit blockers (tensor cores,
   FP32 pipe, MUFU, HBM) are held against their plain versions on the card
   at the reference's default sizes and at sizes that fill the card; then
@@ -41,6 +51,7 @@ import json
 import os
 import re
 import shutil
+import struct
 import subprocess
 import sys
 import time
@@ -105,13 +116,14 @@ def _sass_counts(lib_path):
 def phase_build():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import microbench as mb
+    from repro_torch.kernels import port_bound as pb
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import ssd_scan as sd
     from repro_torch.kernels import wave_dispatch as wd
     t0 = time.perf_counter()
     libs = {"wave_dispatch": wd.LIBRARY, "microbench": mb.LIBRARY,
             "flash_attention": fa.LIBRARY, "rmsnorm": rn.LIBRARY,
-            "ssd_scan": sd.LIBRARY}
+            "ssd_scan": sd.LIBRARY, "port_bound": pb.LIBRARY}
     with ThreadPoolExecutor(len(libs)) as pool:   # one nvcc per source
         futures = [pool.submit(lib.load) for lib in libs.values()]
         for f in futures:
@@ -418,7 +430,7 @@ def phase_main_path():
         log(f"[main] {name}: XML ({len(xml)} bytes) and JSON "
             f"({len(js)} bytes) byte-identical to the CPU torch backend")
     log(f"[main] CPU torch-backend campaign: {cpu_wall:.2f} s wall")
-    return machines, wall, launches
+    return machines, wall, launches, res.models
 
 
 def _bound_ms(args):
@@ -567,6 +579,341 @@ def phase_breakdown():
         if busy else "[breakdown] the profiler recorded no device time: "
         "device busy share not measured")
 
+
+# ------------------------------------------------------ predict -> serve
+README_BLOCK = "IMUL_R64_R64 op1=R0 op2=R1\nADD_R64_R64 op1=R0 op2=R2"
+SERVE_SEED = 1234
+SERVE_BLOCKS = 1024       # one predict_batch a uarch and wire
+WIDE_BLOCKS = 10_000      # one uarch's share of the corpus (README)
+SIM_BLOCKS = 256          # simulate-backed blocks a uarch
+LOAD_SECONDS = 2.0        # closed-loop load a wire (cached answers)
+
+
+def _canon(envs):
+    """Canonical JSON of response envelopes, trace ids dropped."""
+    return json.dumps([{k: v for k, v in e.items() if k != "trace_id"}
+                       for e in envs], sort_keys=True)
+
+
+def _bits(preds):
+    """Every float field of every prediction, as float64 bits, and the
+    rest of the prediction."""
+    return [(struct.pack(f"<{4 + len(p.port_pressure)}d", p.cycles,
+                         p.port_bound, p.latency_bound, p.frontend_bound,
+                         *p.port_pressure.values()),
+             tuple(p.port_pressure), p.bottleneck) for p in preds]
+
+
+def _quotients(num, den):
+    return (num.cpu().double() / den.cpu().double()).numpy()
+
+
+def port_bound_vs_plain(args):
+    """The port-bound kernel and its plain version on the same card
+    inputs; their float64 quotients must agree bit for bit (tied ratios
+    may come back as different pairs).  Returns the largest absolute
+    difference of the quotients (0.0)."""
+    from repro_torch.kernels import port_bound as pb
+    num, den = pb.port_bound(*args)
+    torch.cuda.synchronize()
+    rnum, rden = pb.port_bound_ref(*args)
+    got, want = _quotients(num, den), _quotients(rnum, rden)
+    if not np.array_equal(got.view(np.int64), want.view(np.int64)):
+        bad = int((got != want).sum())
+        raise SystemExit(f"chip_smoke: port_bound disagrees with its plain "
+                         f"version on {bad} rows, shape "
+                         f"{tuple(args[0].shape)} x {tuple(args[1].shape)}")
+    return float(np.abs(got - want).max()) if len(got) else 0.0
+
+
+def _port_bound_cases():
+    """Random int32 inputs at B x C x S in {1, 31, 32, 4096, 10,000} x
+    {1, 11, 32} x {1, 71, 4096} inside the reference's guard, then ties,
+    all-zero rows and row totals just below the guard."""
+    rng = np.random.default_rng(SERVE_SEED)
+    guard = 2 ** 31
+    cases = []
+    for B in (1, 31, 32, 4096, WIDE_BLOCKS):
+        for C in (1, 11, 32):
+            for S in (1, 71, 4096):
+                size = rng.integers(1, 9, S)
+                u = rng.integers(0, 1000, (B, C))
+                u[rng.random(B) < 0.1] = 0
+                cases.append((u, rng.random((C, S)) < 0.4, size))
+    cases.append((np.full((64, 4), 3), np.eye(4), np.ones(4)))
+    u = rng.integers(0, 10, (4096, 6))
+    u[:, 0] = u[:, 1] = rng.integers(50, 99, 4096)
+    mask = rng.random((6, 71)) < 0.4
+    size = np.full(71, 8)
+    mask[:, 3], size[3] = [1, 0, 0, 0, 0, 0], 1
+    mask[:, 40], size[40] = [1, 1, 0, 0, 0, 0], 2
+    cases.append((u, mask, size))
+    u = rng.integers(0, 1000, (4096, 11))
+    u[::2] = 0
+    cases.append((u, rng.random((11, 71)) < 0.4, rng.integers(1, 9, 71)))
+    size = rng.integers(1, 9, 71)
+    cap = (guard - 1) // int(size.max())
+    u = np.zeros((4096, 11), np.int64)
+    u[:, 0] = cap - np.arange(4096)
+    u[::2, :3] = cap // 3
+    cases.append((u, rng.random((11, 71)) < 0.4, size))
+    out = []
+    for u, mask, size in cases:
+        require(int(u.sum(1).max()) * int(size.max()) < guard,
+                "a port_bound case breaks the guard")
+        out.append(tuple(torch.from_numpy(np.ascontiguousarray(a, np.int32))
+                         .cuda() for a in (u, mask, size)))
+    return out
+
+
+def _serve_session(client, waves):
+    """The requests of one client: uarches, health, the README's block
+    on every uarch, one predict_batch a uarch.  Every envelope must be
+    ok.  Returns the canonical payloads (trace ids dropped) and the
+    predict_batch wall times."""
+    out = [json.dumps(client.uarches())]
+    require(client.health()["status"] == "ok", "health is not ok")
+    wall = 0.0
+    for ua, blocks in waves.items():
+        env = client.predict(ua, README_BLOCK, raw=True)
+        require(env["ok"], f"{ua}: README block: {env}")
+        out.append(_canon([env]))
+        t0 = time.perf_counter()
+        envs = client.predict_batch(ua, blocks)
+        wall += time.perf_counter() - t0
+        require(len(envs) == len(blocks) and all(e["ok"] for e in envs),
+                f"{ua}: an envelope of the batch is not ok")
+        out.append(_canon(envs))
+    return out, wall
+
+
+def _host_payloads(models, waves):
+    """The same requests answered in process by the numpy backend on the
+    CPU."""
+    from repro_torch.core.isa import TEST_ISA
+    from repro_torch.service.batch_predictor import BatchPredictor
+    from repro_torch.service.protocol import parse_block, prediction_to_dict
+    out = [json.dumps(sorted(models))]
+    for ua, blocks in waves.items():
+        bp = BatchPredictor(models[ua], TEST_ISA, backend="numpy")
+        out.append(_canon([{"ok": True, "uarch": ua,
+                            "result": prediction_to_dict(bp.predict(
+                                parse_block(README_BLOCK)))}]))
+        out.append(_canon([{"ok": True, "uarch": ua,
+                            "result": prediction_to_dict(p)}
+                           for p in bp.predict_batch(blocks)]))
+    return out
+
+
+def phase_serve(models):
+    """predict -> serve -> query on the card: the three models served by
+    ``start_server(predict_backend="cuda")`` over a JSON and a binary
+    client; the widest wave in process; simulate-backed mode.  Returns
+    the port-bound kernel's launches on this path and every wave it
+    launched, the widest wave's inputs and the serve numbers."""
+    import tempfile
+
+    from repro_torch.core import model_io
+    from repro_torch.core.isa import TEST_ISA
+    from repro_torch.core.simulator import SimMachine
+    from repro_torch.core.uarch import SIM_UARCHES
+    from repro_torch.kernels import port_bound as pb
+    from repro_torch.kernels import wave_dispatch as wd
+    from repro_torch.service.batch_predictor import BatchPredictor
+    from repro_torch.service.client import ServiceClient
+    from repro_torch.service.loadgen import run_load
+    from repro_torch.service.server import start_server
+    from repro_torch.service.workload import random_blocks
+
+    names = sorted(models)
+    waves = {ua: random_blocks(models[ua], TEST_ISA, SERVE_BLOCKS,
+                               seed=SERVE_SEED) for ua in names}
+    fresh = {wire: {ua: random_blocks(models[ua], TEST_ISA, SERVE_BLOCKS,
+                                      seed=SERVE_SEED + 1 + i)
+                    for ua in names}
+             for i, wire in enumerate(("json", "binary"))}
+    launched = []
+    out = {"wires": {}}
+    torch.cuda.synchronize()
+    pb.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        for ua in names:
+            (Path(tmp) / f"{ua}.xml").write_text(
+                model_io.to_xml(models[ua], TEST_ISA))
+        server = start_server(tmp, predict_backend="cuda")
+        try:
+            for ua in names:    # keep every launch's inputs
+                server.service._predictor(ua)[1].launched_args = launched
+            payloads = {}
+            for wire in ("json", "auto"):
+                with ServiceClient(server.host, server.port,
+                                   wire=wire) as c:
+                    want = "json" if wire == "json" else "binary"
+                    require(c.wire == want, f"wire {wire} negotiated "
+                            f"{c.wire}")
+                    payloads[want], _ = _serve_session(c, waves)
+                    # fresh blocks: nothing in the caches, a cold wave
+                    got, cold = _serve_session(c, fresh[want])
+                    require(got == _host_payloads(models, fresh[want]),
+                            f"{want} wire: fresh payloads differ from the "
+                            "numpy backend")
+                load = run_load(server.host, server.port, "sim_skl",
+                                waves["sim_skl"][:256], wire=want, conns=4,
+                                duration_s=LOAD_SECONDS)
+                require(load["errors"] == 0, f"loadgen errors: {load}")
+                n = SERVE_BLOCKS * len(names)
+                out["wires"][want] = {
+                    "cold_predict_batch_s": cold,
+                    "cold_predictions_per_s": n / cold,
+                    "warm_predictions_per_s": load["predictions_per_s"],
+                    "loadgen": load}
+                log(f"[serve] {want} wire: {n} cold predictions in "
+                    f"{cold:.3f} s ({n / cold:.0f}/s); closed loop on "
+                    f"cached waves of 256: {json.dumps(load)}")
+            require(payloads["json"] == payloads["binary"],
+                    "payloads differ between the JSON and binary wires")
+            require(payloads["json"] == _host_payloads(models, waves),
+                    "served payloads differ from the numpy backend on "
+                    "the CPU")
+            st = server.service.stats()["predictor"]
+            log(f"[serve] predictor stats: {json.dumps(st)}")
+            require(st["backend"] == "cuda", f"backend {st['backend']}")
+            require(st["device_waves"] > 0, "no device wave was served")
+            require(st["device_fallbacks"] == 0,
+                    f"{st['device_fallbacks']} device fallbacks")
+            out["predictor_stats"] = st
+        finally:
+            server.close()
+    served = pb.launches
+    require(served > 0, "serving never launched the port_bound kernel")
+    log(f"[serve] {len(names)} uarches x 2 wires: every envelope ok, "
+        f"payloads byte-identical across the wires and to the numpy "
+        f"backend on the CPU; port_bound launched {served} times")
+
+    # the widest wave: one uarch's share of the corpus, in process
+    model = models["sim_skl"]
+    blocks = random_blocks(model, TEST_ISA, WIDE_BLOCKS, seed=SERVE_SEED)
+    bp = BatchPredictor(model, TEST_ISA, backend="cuda")
+    bp.predict_batch(blocks[:64])          # upload the tables first
+    bp.launched_args = launched
+    launches_before_wide = len(launched)
+    host = BatchPredictor(model, TEST_ISA, backend="numpy")
+    walls = {"cuda": [], "numpy": []}
+    results = {}
+    for name in ("cuda", "numpy", "numpy", "cuda"):     # in turns
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results[name] = (bp if name == "cuda" else host).predict_batch(
+            blocks)
+        walls[name].append(time.perf_counter() - t0)
+    require(_bits(results["cuda"]) == _bits(results["numpy"]),
+            "the 10,000-block wave differs from the numpy backend")
+    wide_args = launched[-1]
+    require(len(launched) == launches_before_wide + 2
+            and wide_args[0].shape[1] == len(bp._combos),
+            "the widest wave did not launch")
+    log(f"[serve] widest wave: {WIDE_BLOCKS} sim_skl blocks, "
+        f"{wide_args[0].shape[0]} device rows, C={wide_args[1].shape[0]} "
+        f"S={wide_args[1].shape[1]}: cuda {walls['cuda']} s wall, numpy "
+        f"{walls['numpy']} s, in turns; bit-identical")
+    # the main path's launches end here: the breakdown below is a timing
+    # pass, kept out of the count and of the waves held against the plain
+    # version
+    launches = pb.launches
+    bp.launched_args = None
+    out["widest"] = {"blocks": WIDE_BLOCKS, "wall_s": walls["cuda"],
+                     "numpy_wall_s": walls["numpy"],
+                     "breakdown_s": _wave_breakdown(bp, blocks)}
+
+    # simulate-backed mode on every uarch
+    before = wd.launches
+    for ua in names:
+        blk = random_blocks(models[ua], TEST_ISA, SIM_BLOCKS,
+                            seed=SERVE_SEED)
+        card = BatchPredictor(models[ua], TEST_ISA, machine=SimMachine(
+            SIM_UARCHES[ua], TEST_ISA, backend="cuda")).simulate_batch(blk)
+        cpu = BatchPredictor(models[ua], TEST_ISA, backend="numpy",
+                             machine=SimMachine(SIM_UARCHES[ua], TEST_ISA,
+                                                backend="torch",
+                                                device="cpu")
+                             ).simulate_batch(blk)
+        require(card == cpu, f"{ua}: simulate_batch differs from the CPU "
+                "machine")
+    require(wd.launches > before, "simulate_batch never launched the wave "
+            "kernel")
+    log(f"[serve] simulate_batch: {SIM_BLOCKS} blocks on each of "
+        f"{len(names)} uarches equal to the CPU machine's cycles; "
+        f"{wd.launches - before} wave-dispatch launches")
+    return launches, launched, wide_args, out
+
+
+def _wave_breakdown(bp, blocks):
+    """Host seconds of the widest wave's parts, each over all its blocks:
+    the reference helpers a served wave runs per block, and the device
+    call (packing u, the copy up, the kernel, the copy back)."""
+    from repro_torch.core.predictor import (_latency_bound, check_block,
+                                            port_pressure, sum_usage)
+    codes = [list(b) for b in blocks]
+    parts = {}
+    t0 = time.perf_counter()
+    for c in codes:
+        check_block(bp.model, c, bp.isa)
+    parts["check_block"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sums = {i: sum_usage(bp.model, c) for i, c in enumerate(codes)}
+    parts["sum_usage"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for c in codes:
+        _latency_bound(bp.model, bp.isa, c)
+    parts["latency_bound"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for u, _ in sums.values():
+        port_pressure(u)
+    parts["port_pressure"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bp._port_bounds(sums)
+    torch.cuda.synchronize()
+    parts["port_bounds"] = time.perf_counter() - t0
+    log("[serve] widest wave, host seconds by part: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in parts.items()))
+    return parts
+
+
+def phase_serve_kernel(launched, wide_args):
+    """The port-bound kernel against its plain version on the card: every
+    wave the serve path launched, then random, tie, all-zero and
+    near-guard inputs; then the widest wave's launch timed beside its
+    plain version and its bound."""
+    from repro_torch.kernels import port_bound as pb
+    err = 0.0
+    for args in launched:
+        err = max(err, port_bound_vs_plain(args))
+    cases = _port_bound_cases()
+    for args in cases:
+        err = max(err, port_bound_vs_plain(args))
+    log(f"[serve-kernel] port_bound equal to its plain version on "
+        f"{len(launched)} served waves and {len(cases)} random and "
+        "hand-made inputs")
+    u, mask, size = wide_args
+    B, C = u.shape
+    S = mask.shape[1]
+    nbytes = 4 * (B * C + C * S + S + 2 * B)
+    # what these inputs need: an add per (row, combo with uops, candidate
+    # holding it), and two products and a compare per (row, candidate)
+    adds = int(((u != 0).sum(0, dtype=torch.int64)
+                * mask.sum(1, dtype=torch.int64)).sum())
+    ops = adds + 3 * B * S
+    bound_ms, bound_by = _bound(nbytes, ops, H100_SXM["peak_fp32_flops"])
+    ms = _time_ms(pb.port_bound, wide_args, reps=200)
+    device_ms = _device_ms(pb.port_bound, wide_args, 200, bound_ms)
+    plain_ms = _time_ms(pb.port_bound_ref, wide_args, reps=3)
+    log(f"[serve-kernel] widest wave B={B} C={C} S={S}: kernel {ms:.4f} ms "
+        f"a call (device {device_ms:.4f} ms a launch, 200 back to back), "
+        f"plain {plain_ms:.3f} ms, bound {bound_ms:.6f} ms ({bound_by}: "
+        f"{nbytes} bytes, {ops} operations)")
+    return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
+            "shape_BCS": [B, C, S]}
 
 # --------------------------------------------------------- unit blockers
 UNITS = ("MXU", "VPU", "SFU", "LSU")
@@ -1392,9 +1739,11 @@ def main():
     phase_build()
     card_tests = phase_card_tests()
     phase_kernel_checks()
-    machines, wall, launches = phase_main_path()
+    machines, wall, launches, models = phase_main_path()
     timing = phase_main_chunks(machines, launches)
     phase_breakdown()
+    serve_launches, served_waves, wide_args, serve = phase_serve(models)
+    serve_kernel = phase_serve_kernel(served_waves, wide_args)
     errs = phase_blockers()
     blocker_launches, profiles = phase_hardware()
     blocker_times = phase_blocker_timing()
@@ -1451,6 +1800,12 @@ def main():
                 stage_worst=head["stage_worst"],
                 kernels_per_call=sd.KERNELS_PER_CALL,
                 f64_shares=ssd_shares)
+    report["kernels"].append({
+        "name": "port_bound", "route": "cuda",
+        "source": "src/repro_torch/csrc/port_bound.cu",
+        "replaces": "src/repro/service/batch_predictor.py:302",
+        "launches": serve_launches, "library_ms": None, **serve_kernel,
+        "served_waves": len(served_waves), **serve})
     print(smi, flush=True)
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {

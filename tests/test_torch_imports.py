@@ -14,6 +14,7 @@ import torch
 
 import repro_torch
 from repro_torch.core.batch_sim import BatchSimMachine
+from repro_torch.core.characterize import PerfModel
 from repro_torch.core import hardware, kernel_bench
 from repro_torch.core.device_mesh import (dispatch_lock, partition,
                                           resolve_device, resolve_devices)
@@ -29,6 +30,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels import ssd_scan as sd
 from repro_torch.kernels import wave_dispatch as wd
+from repro_torch.service.batch_predictor import BatchPredictor
+from repro_torch.service.server import PredictionService
 
 SRC = Path(__file__).resolve().parent.parent / "src"
 
@@ -53,7 +56,10 @@ def test_package_has_the_slice_modules():
                                               ARCH_IDS),
                  "models", "models.mamba", "kernels.ref", "kernels.ops",
                  "kernels.flash_attention", "kernels.rmsnorm",
-                 "kernels.ssd_scan"):
+                 "kernels.ssd_scan", "core.predictor", "kernels.port_bound",
+                 "service", "service.workload", "service.batch_predictor",
+                 "service.protocol", "service.registry", "service.server",
+                 "service.client", "service.loadgen"):
         assert f"repro_torch.{name}" in mods, name
 
 
@@ -102,7 +108,10 @@ def test_card_test_files_import_with_jax_and_repro_poisoned(card_file):
 
 def test_sources_never_mention_the_reference_package_in_imports():
     root = SRC / "repro_torch"
-    for path in root.rglob("*.py"):
+    entry_points = [SRC.parent / f for f in (
+        "chip_smoke.py", "scripts/analyze_torch.py",
+        "examples/serve_models_torch.py")]
+    for path in [*root.rglob("*.py"), *entry_points]:
         for line in path.read_text().splitlines():
             s = line.strip()
             if s.startswith(("import ", "from ")):
@@ -121,6 +130,14 @@ def test_defaults_are_the_card():
     for fn in (*mb.BLOCKERS.values(), build_jit_corpus, hardware.measure_op,
                kernel_bench.profile_kernel):
         assert inspect.signature(fn).parameters["device"].default is None
+    # the serving path: each predictor's backend and device (None: the
+    # cuda kernel on cuda:0, see test_predict_backend_default_is_the_card)
+    params = inspect.signature(BatchPredictor).parameters
+    assert params["backend"].default is None
+    assert params["device"].default is None
+    params = inspect.signature(PredictionService).parameters
+    assert params["predict_backend"].default is None
+    assert params["predict_device"].default is None
     if torch.cuda.is_available():
         assert resolve_device() == torch.device("cuda:0")
 
@@ -181,6 +198,18 @@ def test_simmachine_backend_env_default_is_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         m.run_batch([body * 10, body * 110, body * 20, body * 30])
     assert m._batch is None       # nothing ran anywhere else
+
+
+def test_predict_backend_default_is_the_card(monkeypatch):
+    monkeypatch.delenv("REPRO_PREDICT_BACKEND", raising=False)
+    if torch.cuda.is_available():
+        bp = BatchPredictor(PerfModel("sim_skl"), TEST_ISA)
+        assert (bp.backend, bp.device) == ("cuda", torch.device("cuda:0"))
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BatchPredictor(PerfModel("sim_skl"), TEST_ISA)
+    bp = BatchPredictor(PerfModel("sim_skl"), TEST_ISA, backend="numpy")
+    assert bp.device is None
 
 
 def test_cuda_backend_without_a_card_raises():
