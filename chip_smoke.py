@@ -5,7 +5,7 @@
 Builds the port's six kernel libraries from ``src/repro_torch/csrc`` with
 nvcc, in parallel, runs the jax-free card tests
 (``python -m pytest -m cuda tests/test_torch_card_*.py``) against them, and
-drives the port's four paths on the card:
+drives the port's five paths on the card:
 
 * **characterize -> export.**  The wave-dispatch kernel is held bit for
   bit against its plain PyTorch version on the card; then a ``Campaign``
@@ -22,6 +22,19 @@ drives the port's four paths on the card:
   kernel is then held against its plain version on every wave it served
   and on random, tie, all-zero and near-guard inputs, and timed beside its
   plain version and its bound.
+* **the entry scripts.**  ``examples/quickstart_torch.py`` and a copy of
+  ``examples/export_models_torch.py`` run on the card in child processes
+  that cannot import jax or ``repro``: the quickstart prints the CPU
+  backend's lines, the export writes the campaign's XML, and a warm re-run
+  replays every experiment from its cache with no launch.
+* **corpus evaluation.**  The README corpus (seed 0, 10,000 blocks a
+  uarch, all three uarches) is generated and evaluated on the card,
+  traced: ground truth through the wave-dispatch kernel, predictions
+  through the port-bound kernel, walls per uarch and stage.  A resumed
+  run launches nothing; the first shard of each uarch equals the CPU
+  ``torch`` backend bit for bit; ``sim_skl`` served through
+  ``client_predict_fn`` gives the in-process artifact on both wires; the
+  widest launch of each kernel is held against its plain version.
 * **hardware characterization.**  The four unit blockers (tensor cores,
   FP32 pipe, MUFU, HBM) are held against their plain versions on the card
   at the reference's default sizes and at sizes that fill the card; then
@@ -46,6 +59,7 @@ kernel report and the device line, both JSON.
 
 Imports nothing of jax and nothing of the reference package ``repro``.
 """
+import contextlib
 import functools
 import json
 import os
@@ -587,6 +601,7 @@ SERVE_BLOCKS = 1024       # one predict_batch a uarch and wire
 WIDE_BLOCKS = 10_000      # one uarch's share of the corpus (README)
 SIM_BLOCKS = 256          # simulate-backed blocks a uarch
 LOAD_SECONDS = 2.0        # closed-loop load a wire (cached answers)
+CORPUS_WAVE = 2048        # the README's --wave-width
 
 
 def _canon(envs):
@@ -914,6 +929,481 @@ def phase_serve_kernel(launched, wide_args):
     return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
             "shape_BCS": [B, C, S]}
+
+# ------------------------------------------- entry scripts and the corpus
+# a child process that cannot import jax or the reference package, then
+# runs the script as __main__ and reports the kernels' launches on stderr
+POISONED = (
+    "import runpy, sys\n"
+    "for name in ('jax', 'jaxlib', 'repro'):\n"
+    "    sys.modules[name] = None\n"
+    "sys.argv = sys.argv[1:]\n"
+    "try:\n"
+    "    runpy.run_path(sys.argv[0], run_name='__main__')\n"
+    "finally:\n"
+    "    wd = sys.modules.get('repro_torch.kernels.wave_dispatch')\n"
+    "    print(f'wave_dispatch launches: {wd.launches if wd else 0}',\n"
+    "          file=sys.stderr)\n")
+
+
+def _script(path, env, *, cwd=None):
+    """Start ``path`` in a poisoned child; :func:`_finish` waits.  Every
+    child has the same string-hash seed: a model's JSON holds LP results
+    whose last bit follows the order of a frozenset of port names (the
+    reference's ``core/lp.py:_scipy_lp``), so JSON compares only between
+    processes of one seed."""
+    base = {k: v for k, v in os.environ.items()
+            if not k.startswith("REPRO_")}
+    base.update(PYTHONPATH=str(ROOT / "src"), PYTHONHASHSEED="0", **env)
+    return subprocess.Popen([sys.executable, "-c", POISONED, str(path)],
+                            cwd=cwd or ROOT, env=base, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+
+def _finish(proc, what, timeout=600):
+    t0 = time.perf_counter()
+    out, err = proc.communicate(timeout=timeout)
+    if proc.returncode != 0:
+        log(out[-4000:])
+        log(err[-4000:])
+    require(proc.returncode == 0, f"{what} exited {proc.returncode}")
+    m = re.search(r"wave_dispatch launches: (\d+)", err)
+    require(m is not None, f"{what}: no launch count")
+    return out, int(m.group(1)), time.perf_counter() - t0
+
+
+def _hit_rates(stdout):
+    return [line.rsplit("cache hit rate ", 1)[1].rstrip(")")
+            for line in stdout.splitlines() if "cache hit rate" in line]
+
+
+def phase_scripts(models):
+    """The README's two entry scripts of the port, each in a child process
+    where ``import jax`` and ``import repro`` fail, on the card's defaults
+    (no ``REPRO_*`` variable): ``examples/quickstart_torch.py`` must print
+    what the same script prints on the CPU ``torch`` backend, line for
+    line; a copy of ``examples/export_models_torch.py`` (it writes beside
+    itself) must export XML byte-identical to ``[main]``'s models and JSON
+    (``run_seconds`` set to 0) equal to a copy run on the CPU ``torch``
+    backend, and a warm re-run must replay every experiment from its cache
+    (100% hit rate, no launch) and export the same XML and JSON."""
+    import tempfile
+
+    from repro_torch.core import model_io
+    from repro_torch.core.isa import TEST_ISA
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scripts_") as tmp:
+        tmp = Path(tmp)
+        qs = ROOT / "examples" / "quickstart_torch.py"
+        (tmp / "card").mkdir()
+        (tmp / "cpu").mkdir()
+        card = _script(qs, {"TMPDIR": str(tmp / "card")})
+        cpu = _script(qs, {"TMPDIR": str(tmp / "cpu"),
+                           "REPRO_SIM_BACKEND": "torch",
+                           "REPRO_SIM_DEVICES": "cpu"})
+        card_out, card_launches, card_s = _finish(card, "quickstart (card)")
+        cpu_out, cpu_launches, _ = _finish(cpu, "quickstart (CPU)")
+        require(card_launches > 0, "the quickstart never launched the "
+                "wave kernel")
+        require(cpu_launches == 0, "the CPU quickstart launched a kernel")
+        require(card_out.replace(str(tmp / "card"), "TMP")
+                == cpu_out.replace(str(tmp / "cpu"), "TMP"),
+                "the quickstart on the card prints other lines than on "
+                "the CPU")
+        require((tmp / "card" / "quickstart_model.xml").read_bytes()
+                == (tmp / "cpu" / "quickstart_model.xml").read_bytes(),
+                "the quickstart's model XML differs from the CPU's")
+        log(f"[scripts] examples/quickstart_torch.py on the card: "
+            f"{len(card_out.splitlines())} lines, equal to the CPU torch "
+            f"backend's, {card_launches} wave-dispatch launches, "
+            f"{card_s:.1f} s to exit")
+        out["quickstart"] = {"launches": card_launches, "wall_s": card_s}
+
+        def exported(root):
+            mdir = root / "experiments" / "models"
+            xml, js = {}, {}
+            for name in models:
+                xml[name] = (mdir / f"{name}.xml").read_text()
+                js[name] = json.loads((mdir / f"{name}.json").read_text())
+                js[name]["run_seconds"] = 0
+            return xml, js
+
+        scripts = {}
+        for where in ("card", "cpu"):
+            (tmp / where / "examples").mkdir(parents=True)
+            scripts[where] = Path(shutil.copy(
+                ROOT / "examples" / "export_models_torch.py",
+                tmp / where / "examples"))
+        cpu = _script(scripts["cpu"], {"REPRO_SIM_BACKEND": "torch",
+                                       "REPRO_SIM_DEVICES": "cpu"})
+        runs = []
+        for label in ("cold", "warm"):
+            stdout, launches, wall = _finish(_script(scripts["card"], {}),
+                                             f"export_models ({label})")
+            xml, js = exported(tmp / "card")
+            for name, model in models.items():
+                require(xml[name] == model_io.to_xml(model, TEST_ISA),
+                        f"{label} export: {name}.xml differs from [main]")
+            runs.append({"launches": launches, "wall_s": wall,
+                         "hit_rates": _hit_rates(stdout), "json": js})
+        _, cpu_launches, _ = _finish(cpu, "export_models (CPU)")
+        cold, warm = runs
+        cpu_xml, cpu_js = exported(tmp / "cpu")
+        require(cpu_launches == 0, "the CPU export launched a kernel")
+        require(cpu_xml == xml, "the CPU export's XML differs")
+        require(cold.pop("json") == cpu_js, "the cold export's JSON differs "
+                "from the CPU torch backend's")
+        require(warm.pop("json") == cpu_js, "the warm export's JSON differs "
+                "from the CPU torch backend's")
+        require(cold["launches"] > 0, "the export never launched the wave "
+                "kernel")
+        require(warm["hit_rates"] == ["100.0%"] * len(models),
+                f"warm export hit rates {warm['hit_rates']}")
+        require(warm["launches"] == 0, "the warm export launched the wave "
+                "kernel")
+        log(f"[scripts] examples/export_models_torch.py on the card: cold "
+            f"{cold['wall_s']:.1f} s to exit ({cold['launches']} launches, "
+            f"hit rates {cold['hit_rates']}), warm {warm['wall_s']:.1f} s "
+            f"(hit rates {warm['hit_rates']}, no launch); XML "
+            f"byte-identical to [main] both times, JSON (run_seconds 0) "
+            f"equal to the CPU torch backend's under one hash seed")
+        out["export"] = {"cold": cold, "warm": warm}
+    return out
+
+
+class _Widest(list):
+    """A ``launched_args`` sink that counts the launches and keeps only the
+    widest one's inputs (by ``key``)."""
+
+    def __init__(self, key):
+        super().__init__()
+        self.key = key
+        self.n = 0
+
+    def append(self, args):
+        self.n += 1
+        if not self or self.key(args) > self.key(self[0]):
+            self[:] = [args]
+
+
+@contextlib.contextmanager
+def _corpus_hooks(wave_sink, predict_sink, machines, predictors):
+    """Every machine and predictor that ``evaluate_corpus`` builds in this
+    block hands its kernel launches to the sinks and is kept, so their
+    telemetry can be read afterwards."""
+    from repro_torch.corpus import evaluate as ev
+    sim, bpred = ev.SimMachine, ev.BatchPredictor
+
+    class Machine(sim):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.launched_args = wave_sink
+            machines.append(self)
+
+    class Predictor(bpred):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.launched_args = predict_sink
+            predictors.append(self)
+
+    ev.SimMachine, ev.BatchPredictor = Machine, Predictor
+    try:
+        yield
+    finally:
+        ev.SimMachine, ev.BatchPredictor = sim, bpred
+
+
+def _row_bits(rows):
+    return np.array([[r["measured"], r["predicted"]] for r in rows],
+                    dtype=np.float64).view(np.int64)
+
+
+def _stage_walls(events, uarches):
+    """Per uarch, host seconds of the traced evaluation's stages: the
+    ``corpus.uarch`` span, and inside its window characterization, ground
+    truth (``predict.simulate``) and prediction (``predict.batch``)."""
+    win = {e["args"]["uarch"]: (e["t0"], e["t0"] + e["dur"])
+           for e in events if e["ph"] == "X" and e["name"] == "corpus.uarch"}
+    out = {}
+    for ua in uarches:
+        lo, hi = win[ua]
+        part = {"uarch_s": (hi - lo) / 1e9}
+        for key, name in (("characterize_s", "characterize"),
+                          ("ground_truth_s", "predict.simulate"),
+                          ("predict_s", "predict.batch")):
+            part[key] = sum(e["dur"] for e in events
+                            if e["ph"] == "X" and e["name"] == name
+                            and lo <= e["t0"] < hi) / 1e9
+        out[ua] = part
+    return out
+
+
+def _artifact(results, *, scores_only=False):
+    """The accuracy artifact as ``python -m repro_torch.corpus evaluate``
+    writes it; ``scores_only`` drops the run's wave and engine counters."""
+    from repro_torch.corpus import score_results
+    art = score_results(results)
+    if scores_only:
+        art.pop("wave_stats", None)
+        art.pop("engine_stats", None)
+    return json.dumps(art, sort_keys=True, indent=1)
+
+
+def phase_corpus():
+    """The README's corpus evaluation on the card, at full width: seed 0,
+    10,000 blocks a uarch on the three ``SIM_UARCHES``, shards of 2,048,
+    wave width 2,048, ground truth through the wave-dispatch kernel and
+    predictions through the port-bound kernel (traced: the walls of each
+    stage come from the port's spans).  Then: a resumed run launches
+    nothing and gives the same scores; the first shard of each uarch
+    equals the CPU ``torch`` backend row for row; ``sim_skl`` served over
+    ``client_predict_fn`` gives the in-process artifact on both wires; and
+    the widest launch of each kernel is held against its plain version."""
+    import hashlib
+    import tempfile
+
+    from repro_torch.core import model_io
+    from repro_torch.core.characterize import characterize
+    from repro_torch.core.engine import as_engine
+    from repro_torch.core.isa import TEST_ISA
+    from repro_torch.core.simulator import SimMachine
+    from repro_torch.core.uarch import SIM_UARCHES
+    from repro_torch.corpus import (CorpusSpec, client_predict_fn,
+                                    evaluate_corpus, generate_corpus)
+    from repro_torch.corpus.store import MANIFEST, SHARD_DIR, read_shard
+    from repro_torch.kernels import port_bound as pb
+    from repro_torch.kernels import wave_dispatch as wd
+    from repro_torch.obs import tracer as obs
+    from repro_torch.service.client import local_service
+    from repro_torch.service.protocol import parse_block
+
+    spec = CorpusSpec()
+    require((spec.seed, spec.blocks_per_uarch, spec.shard_size,
+             spec.min_len, spec.max_len) == (0, 10_000, 2048, 2, 12)
+            and set(spec.uarches) == set(SIM_UARCHES),
+            f"the default spec is not the README's corpus: {spec}")
+    card = torch.device("cuda:0")
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_corpus_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        manifest = generate_corpus(tmp / "corpus", spec)
+        gen_s = time.perf_counter() - t0
+        cid = manifest["corpus_id"]
+        log(f"[corpus] generated corpus {cid[:12]}: "
+            f"{manifest['total_blocks']} blocks in "
+            f"{len(manifest['shards'])} shards in {gen_s:.2f} s")
+
+        # the main path, traced, its launches counted from 0
+        wave_sink = _Widest(lambda a: a[0].shape[0] * a[0].shape[1])
+        predict_sink = _Widest(lambda a: a[0].shape[0])
+        machines, predictors = [], []
+        prev = obs.set_tracer(obs.Tracer(enabled=True))
+        try:
+            with _corpus_hooks(wave_sink, predict_sink, machines,
+                               predictors):
+                torch.cuda.synchronize()
+                wd.launches = pb.launches = 0
+                t0 = time.perf_counter()
+                results = evaluate_corpus(
+                    tmp / "corpus", backend="cuda", device=card,
+                    predict_backend="cuda", wave_width=CORPUS_WAVE,
+                    out_dir=tmp / "results")
+                torch.cuda.synchronize()
+                eval_s = time.perf_counter() - t0
+                launches = {"wave_dispatch": wd.launches,
+                            "port_bound": pb.launches}
+            events = obs.get_tracer().events()
+        finally:
+            obs.set_tracer(prev)
+        require(launches["wave_dispatch"] > 0, "the corpus never launched "
+                "the wave kernel")
+        require(launches["port_bound"] > 0, "the corpus never launched the "
+                "port-bound kernel")
+        require(launches["wave_dispatch"] == wave_sink.n
+                and launches["port_bound"] == predict_sink.n,
+                f"launches {launches} vs kept {wave_sink.n}, "
+                f"{predict_sink.n}")
+        es, ws = results["engine_stats"], results["wave_stats"]
+        require(es["quarantined"] == 0, f"quarantined {es['quarantined']}")
+        require(es["degraded_chunks"] == 0,
+                f"degraded chunks {es['degraded_chunks']}")
+        kernel_ns = {}
+        for m in machines:
+            st = m.device_stats()
+            require(st["backend"] == "cuda" and st["kernel_calls"] > 0,
+                    f"{m.name}: no kernel call on the cuda backend")
+            require(m.degraded_stats() == {}, f"{m.name} degraded")
+            require(set(st.get("kernel_ns", {})) == {"device:cuda:0"},
+                    f"{m.name}: traced waves reported kernel_ns "
+                    f"{st.get('kernel_ns')}")
+            kernel_ns[m.name] = st["kernel_ns"]["device:cuda:0"]
+        for bp in predictors:
+            st = bp.backend_stats()
+            require(st["backend"] == "cuda" and st["device_waves"] > 0,
+                    f"predictor stats {st}")
+            require(st["device_fallbacks"] == 0,
+                    f"{st['device_fallbacks']} device fallbacks")
+        art = _artifact(results)
+        sha = hashlib.sha256(art.encode()).hexdigest()
+        walls = _stage_walls(events, sorted(results["uarches"]))
+        scores = json.loads(art)["uarches"]
+        for ua, w in walls.items():
+            sc = scores[ua]
+            log(f"[corpus] {ua}: {sc['n']} blocks, characterize "
+                f"{w['characterize_s']:.2f} s, ground truth "
+                f"{w['ground_truth_s']:.2f} s, prediction "
+                f"{w['predict_s']:.2f} s (uarch {w['uarch_s']:.2f} s), "
+                f"wave kernel {kernel_ns[ua] / 1e6:.2f} ms on the card "
+                f"(kernel_ns); MAPE {sc['mape']:.6f} tau-b "
+                f"{sc['kendall_tau']:.6f}")
+        log(f"[corpus] evaluate_corpus on cuda: {eval_s:.2f} s wall, "
+            f"{ws['waves']} waves (max width {ws['max_wave_width']}), "
+            f"{launches['wave_dispatch']} wave-dispatch and "
+            f"{launches['port_bound']} port-bound launches; "
+            f"{es['executions']} executions, {es['machine_runs']} machine "
+            f"runs, quarantined 0, no degraded chunk, no device fallback; "
+            f"artifact sha256 {sha[:16]}")
+
+        # resumed: every shard's rows from its result file, no launch
+        before = wd.launches, pb.launches
+        t0 = time.perf_counter()
+        again = evaluate_corpus(tmp / "corpus", backend="cuda", device=card,
+                                predict_backend="cuda",
+                                wave_width=CORPUS_WAVE,
+                                out_dir=tmp / "results")
+        resume_s = time.perf_counter() - t0
+        require((wd.launches, pb.launches) == before,
+                "the resumed run launched a kernel")
+        require(again["wave_stats"]["waves"] == 0, "the resumed run ran a "
+                "wave")
+        require(_artifact(again, scores_only=True)
+                == _artifact(results, scores_only=True),
+                "the resumed run's artifact differs")
+        log(f"[corpus] resumed run: {resume_s:.2f} s, no wave, no launch, "
+            f"artifact byte-identical but for its wave_stats/engine_stats")
+
+        # the first shard of each uarch on the CPU torch backend, with
+        # models characterized on the CPU over the same variants
+        firsts = [next(s for s in manifest["shards"] if s["uarch"] == ua)
+                  for ua in sorted(spec.uarches)]
+        sub = tmp / "first_shards"
+        (sub / SHARD_DIR).mkdir(parents=True)
+        for s in firsts:
+            shutil.copy(tmp / "corpus" / SHARD_DIR / s["name"],
+                        sub / SHARD_DIR)
+        (sub / MANIFEST).write_text(json.dumps(dict(
+            manifest, shards=firsts,
+            total_blocks=sum(s["n_blocks"] for s in firsts))))
+        t0 = time.perf_counter()
+        cpu_models = {}
+        for ua in sorted(spec.uarches):
+            used = sorted({ins.spec for s in manifest["shards"]
+                           if s["uarch"] == ua
+                           for r in read_shard(tmp / "corpus", s)
+                           for ins in parse_block(r["block"])})
+            cpu_models[ua] = characterize(as_engine(SimMachine(
+                SIM_UARCHES[ua], TEST_ISA, backend="torch", device="cpu")),
+                TEST_ISA, used)
+        cpu = evaluate_corpus(sub, backend="torch", device="cpu",
+                              predict_backend="torch", models=cpu_models,
+                              wave_width=CORPUS_WAVE, out_dir=tmp / "cpu")
+        cpu_s = time.perf_counter() - t0
+        for s in firsts:
+            ua, n = s["uarch"], s["n_blocks"]
+            got, want = results["uarches"][ua][:n], cpu["uarches"][ua]
+            require([r["id"] for r in got] == [r["id"] for r in want],
+                    f"{ua}: first shard ids differ")
+            require(np.array_equal(_row_bits(got), _row_bits(want)),
+                    f"{ua}: first shard rows differ from the CPU")
+        log(f"[corpus] CPU cross-check: the first shard of each uarch "
+            f"({', '.join(s['name'] for s in firsts)}, "
+            f"{sum(s['n_blocks'] for s in firsts)} blocks), measured and "
+            f"predicted float64 bits equal to the CPU torch backend "
+            f"(characterization and evaluation {cpu_s:.1f} s on the CPU)")
+
+        # sim_skl served over both wires, against the in-process path
+        mdir = tmp / "models"
+        mdir.mkdir()
+        xml = model_io.to_xml(cpu_models["sim_skl"], TEST_ISA)
+        (mdir / "sim_skl.xml").write_text(xml)
+        skl = {"sim_skl": model_io.load_xml(xml)}
+
+        def run(name, predict_fn=None):
+            return _artifact(evaluate_corpus(
+                tmp / "corpus", uarches=["sim_skl"], models=skl,
+                backend="cuda", device=card, predict_backend="cuda",
+                wave_width=CORPUS_WAVE, out_dir=tmp / name,
+                predict_fn=predict_fn))
+
+        # both sides load the model from the same XML, which rounds its
+        # values: the scores are the served model's, not the main run's
+        t0 = time.perf_counter()
+        inproc = run("inproc")
+        for wire in ("json", "binary"):
+            with local_service(mdir, wire=wire,
+                               predict_backend="cuda") as client:
+                require(client.wire == wire, f"wire {client.wire}")
+                served = run(f"served_{wire}", client_predict_fn(client))
+                st = client.stats()["predictor"]
+            require(served == inproc, f"{wire} wire: the served artifact "
+                    "differs from the in-process one")
+            require(st["device_waves"] > 0 and st["device_fallbacks"] == 0,
+                    f"{wire} wire predictor stats {st}")
+        served_s = time.perf_counter() - t0
+        log(f"[corpus] sim_skl through client_predict_fn over "
+            f"local_service(predict_backend='cuda'): artifact "
+            f"byte-identical to the in-process one on the json and binary "
+            f"wires ({served_s:.1f} s for the three runs)")
+
+        # the widest launch of each kernel against its plain version
+        (args,) = wave_sink
+        err = kernel_vs_plain(args)
+        S, E, R = args[5].shape
+        bound_ms, bound_by = _bound_ms(args)
+        wide_wave = {"shape_SER": [S, E, R], "max_abs_err": err,
+                     "ms": _time_ms(wd.wave_dispatch, args, reps=10),
+                     "device_ms": _device_ms(wd.wave_dispatch, args, 10,
+                                             bound_ms),
+                     "plain_ms": _time_ms(wd.wave_dispatch_ref, args, 1),
+                     "bound_ms": bound_ms, "bound_by": bound_by}
+        (pargs,) = predict_sink
+        perr = port_bound_vs_plain(pargs)
+        B, C = pargs[0].shape
+        Sc = pargs[1].shape[1]
+        nbytes = 4 * (B * C + C * Sc + Sc + 2 * B)
+        adds = int(((pargs[0] != 0).sum(0, dtype=torch.int64)
+                    * pargs[1].sum(1, dtype=torch.int64)).sum())
+        pbound, pby = _bound(nbytes, adds + 3 * B * Sc,
+                             H100_SXM["peak_fp32_flops"])
+        wide_pb = {"shape_BCS": [B, C, Sc], "max_abs_err": perr,
+                   "ms": _time_ms(pb.port_bound, pargs, reps=50),
+                   "device_ms": _device_ms(pb.port_bound, pargs, 50, pbound),
+                   "plain_ms": _time_ms(pb.port_bound_ref, pargs, 1),
+                   "bound_ms": pbound, "bound_by": pby}
+        log(f"[corpus] widest wave-dispatch launch S={S} E={E} R={R}: "
+            f"equal to the plain version; device {wide_wave['device_ms']:.4f}"
+            f" ms a launch, plain {wide_wave['plain_ms']:.2f} ms, bound "
+            f"{bound_ms:.6f} ms ({bound_by}); widest port-bound launch "
+            f"B={B} C={C} S={Sc}: equal to the plain version; device "
+            f"{wide_pb['device_ms']:.4f} ms, plain "
+            f"{wide_pb['plain_ms']:.3f} ms, bound {pbound:.6f} ms ({pby})")
+        out = {"corpus_id": cid, "blocks": manifest["total_blocks"],
+               "shards": len(manifest["shards"]),
+               "waves": ws["waves"], "max_wave_width": ws["max_wave_width"],
+               "generate_s": gen_s, "evaluate_s": eval_s,
+               "resume_s": resume_s, "cpu_check_s": cpu_s,
+               "served_check_s": served_s, "stages_s": walls,
+               "wave_kernel_ns": kernel_ns, "launches": launches,
+               "engine_stats": es, "artifact_sha256": sha,
+               "scores": {ua: {"mape": sc["mape"],
+                               "kendall_tau": sc["kendall_tau"]}
+                          for ua, sc in scores.items()},
+               "widest_wave_dispatch": wide_wave,
+               "widest_port_bound": wide_pb}
+    return out
+
 
 # --------------------------------------------------------- unit blockers
 UNITS = ("MXU", "VPU", "SFU", "LSU")
@@ -1744,6 +2234,8 @@ def main():
     phase_breakdown()
     serve_launches, served_waves, wide_args, serve = phase_serve(models)
     serve_kernel = phase_serve_kernel(served_waves, wide_args)
+    scripts = phase_scripts(models)
+    corpus = phase_corpus()
     errs = phase_blockers()
     blocker_launches, profiles = phase_hardware()
     blocker_times = phase_blocker_timing()
@@ -1761,7 +2253,9 @@ def main():
         "shape_SERMP": big["shape"],
         "longest_chunk": timing["longest"],
         "campaign_kernel_ms": timing["campaign_kernel_ms"],
-        "campaign_wall_s": wall}]}
+        "campaign_wall_s": wall,
+        "corpus_launches": corpus["launches"]["wave_dispatch"],
+        "corpus_widest": corpus["widest_wave_dispatch"]}]}
     replaces = {"MXU": 27, "VPU": 49, "SFU": 69, "LSU": 89}
     for unit in UNITS:
         d = blocker_times[unit]["default"]
@@ -1805,7 +2299,12 @@ def main():
         "source": "src/repro_torch/csrc/port_bound.cu",
         "replaces": "src/repro/service/batch_predictor.py:302",
         "launches": serve_launches, "library_ms": None, **serve_kernel,
-        "served_waves": len(served_waves), **serve})
+        "served_waves": len(served_waves), **serve,
+        "corpus_launches": corpus["launches"]["port_bound"],
+        "corpus_widest": corpus["widest_port_bound"]})
+    report["corpus"] = {k: v for k, v in corpus.items()
+                        if not k.startswith("widest_")}
+    report["scripts"] = scripts
     print(smi, flush=True)
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,7 @@
 model artifacts.
 
 Serves every uarch found under experiments/models/ (run
-examples/export_models.py first) on a TCP port speaking the negotiated
+examples/export_models_torch.py first) on a TCP port speaking the negotiated
 binary / newline-JSON protocol, predicting with the port-bound CUDA kernel
 on the card (REPRO_PREDICT_BACKEND=torch or numpy changes that). Query it
 with scripts/analyze_torch.py --connect, or programmatically with
@@ -33,7 +33,7 @@ server = start_server(args.models, host=args.host, port=args.port)
 uarches = server.service.uarches()
 if not uarches:
     print(f"no model artifacts under {args.models}; run "
-          f"PYTHONPATH=src python examples/export_models.py first",
+          f"PYTHONPATH=src python examples/export_models_torch.py first",
           file=sys.stderr)
     server.close()
     sys.exit(1)

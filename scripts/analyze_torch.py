@@ -16,14 +16,22 @@ Usage:
         --connect HOST:PORT
 
 Without --connect, an in-process service is started over --models
-(default: experiments/models — run examples/export_models.py first),
-predicting with the ``cuda`` kernel on ``cuda:0`` unless
+(default: experiments/models — run examples/export_models_torch.py
+first), predicting with the ``cuda`` kernel on ``cuda:0`` unless
 ``REPRO_PREDICT_BACKEND`` names another backend.
 
-The port of scripts/analyze.py without its --trace-report and
---corpus-report modes: they read trace files and corpus accuracy
-artifacts through obs/export.py and corpus/, which the port does not
-have yet.
+With --corpus-report, the argument is a corpus accuracy artifact
+(experiments/corpus_accuracy.json, written by
+``python -m repro_torch.corpus evaluate``) and the output is the
+per-uarch MAPE / Kendall-τ / error-bucket tables from
+repro_torch.corpus.score, exactly what scripts/analyze.py prints for the
+same artifact::
+
+    PYTHONPATH=src python scripts/analyze_torch.py --corpus-report \\
+        experiments/corpus_accuracy.json
+
+The port of scripts/analyze.py without its --trace-report mode: it reads
+trace files through obs/export.py, which the port does not have yet.
 """
 from __future__ import annotations
 
@@ -63,9 +71,9 @@ def report(uarch: str, resp: dict) -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("block",
-                    help="block file in the textual format, or - for "
-                         "stdin")
+    ap.add_argument("block", nargs="?",
+                    help="block file in the textual format, or - for stdin "
+                         "(not needed with --corpus-report)")
     ap.add_argument("--models", default=str(REPO / "experiments" / "models"),
                     help="model artifact directory (local mode)")
     ap.add_argument("--connect", metavar="HOST:PORT",
@@ -74,7 +82,23 @@ def main(argv=None) -> int:
                     help="restrict to these uarches (repeatable)")
     ap.add_argument("--json", action="store_true", dest="as_json",
                     help="print raw JSON responses")
+    ap.add_argument("--corpus-report", metavar="ACCURACY",
+                    help="render a corpus accuracy artifact "
+                         "(corpus_accuracy.json) instead of predicting "
+                         "a block")
     args = ap.parse_args(argv)
+
+    if args.corpus_report:
+        from repro_torch.corpus import format_report  # noqa: PLC0415
+        rep = json.loads(Path(args.corpus_report).read_text())
+        if args.as_json:
+            print(json.dumps(rep, sort_keys=True, indent=1))
+        else:
+            print(format_report(rep))
+        return 0
+    if not args.block:
+        ap.error("a block file is required unless --corpus-report is "
+                 "given")
 
     text = (sys.stdin.read() if args.block == "-"
             else Path(args.block).read_text())
@@ -94,7 +118,8 @@ def main(argv=None) -> int:
         uarches = args.uarch or client.uarches()
         if not uarches:
             print(f"no model artifacts under {args.models}; run "
-                  f"PYTHONPATH=src python examples/export_models.py first",
+                  f"PYTHONPATH=src python examples/export_models_torch.py "
+                  f"first",
                   file=sys.stderr)
             return 1
         responses = {ua: client.predict(ua, code, raw=True)

@@ -32,6 +32,7 @@ holds every wave against the reference package's backends.
 from __future__ import annotations
 
 import threading
+import time
 from collections import deque
 
 import numpy as np
@@ -45,6 +46,7 @@ from repro_torch.core.uarch_compile import (F_HAS_SR, F_PRESENT, TEMP_BASE,
                                             CompiledUArch, UopTableIndex,
                                             compile_uarch)
 from repro_torch.faults import plan as faults
+from repro_torch.faults.tolerance import StragglerDetector
 from repro_torch.kernels import wave_dispatch as wd
 from repro_torch.obs import tracer as obs
 
@@ -918,18 +920,35 @@ class _DeviceExec:
         self.lanes = 0
         self._lock = threading.Lock()   # guards slot leasing / ring LRU
         self._rings: dict = {}   # bucket -> slot list (LRU by bucket)
+        # per-device kernel time + straggler EWMA, fed by traced waves
+        # only (see dispatch); they surface through stats()
+        self.kernel_ns: dict = {}      # "device:<key>" -> total kernel ns
+        self.straggler = StragglerDetector()
+
+    def _observe(self, dur_ns: int) -> None:
+        """Traced-kernel callback: accumulate the device's kernel time and
+        feed the straggler EWMA with it."""
+        label = f"device:{self.key}"
+        with self._lock:
+            self.kernel_ns[label] = self.kernel_ns.get(label, 0) + dur_ns
+            self.straggler.observe(label, dur_ns / 1e9)
 
     def stats(self) -> dict:
-        return {"backend": self.kind, "compiles": self.compiles,
-                "kernel_calls": self.kernel_calls,
-                "buckets": sorted(self.buckets),
-                "mesh": False,
-                "devices": [self.key],
-                "per_device": {self.key: {
-                    "compiles": self.compiles,
-                    "kernel_calls": self.kernel_calls,
-                    "lanes": self.lanes,
-                    "buckets": sorted(self.buckets)}}}
+        out = {"backend": self.kind, "compiles": self.compiles,
+               "kernel_calls": self.kernel_calls,
+               "buckets": sorted(self.buckets),
+               "mesh": False,
+               "devices": [self.key],
+               "per_device": {self.key: {
+                   "compiles": self.compiles,
+                   "kernel_calls": self.kernel_calls,
+                   "lanes": self.lanes,
+                   "buckets": sorted(self.buckets)}}}
+        with self._lock:
+            if self.kernel_ns:   # only traced waves populate these
+                out["kernel_ns"] = dict(sorted(self.kernel_ns.items()))
+                out["stragglers"] = self.straggler.snapshot()
+        return out
 
     # -- buckets / buffer slots ----------------------------------------
     @staticmethod
@@ -1000,30 +1019,78 @@ class _DeviceExec:
             run = wd.wave_dispatch_ref
         E, S = pk.issue.shape
         R = pk.prod.shape[2]
+        timer = None
         with obs.wait_lock(self.dispatch_lock, "wave.dispatch_lock_wait"):
             args = self.upload(pk)
             with obs.span("wave.kernel", track=f"device:{self.key}",
                           lanes=pk.E, steps=S):
+                if obs.enabled():
+                    # a traced wave times its kernel: CUDA events on the
+                    # launching stream (the launch is asynchronous, so a
+                    # host interval would see only the launch), read after
+                    # the copy back; on the CPU the call is the kernel
+                    timer = _KernelTimer(self.device, self._observe)
                 done, counts = run(*args)
+                if timer is not None:
+                    timer.stop()
         if record is not None:
             record.append(args)
         self.buckets.add((S, E, R))
         self.kernel_calls += 1
         self.lanes += pk.E
-        return _Launched(done, counts)
+        return _Launched(done, counts, timer)
+
+
+class _KernelTimer:
+    """The kernel interval of one traced launch: CUDA events recorded
+    around the launch on the launching stream, or a host ``perf_counter``
+    interval for a CPU call.  :meth:`report` hands the interval in ns to
+    ``observe`` once the outputs are on the host, so only traced waves
+    wait on an event and no untraced wave gains a synchronisation."""
+    __slots__ = ("observe", "stream", "events", "t0", "ns")
+
+    def __init__(self, device, observe):
+        self.observe = observe
+        self.stream = self.events = None
+        self.t0 = self.ns = 0
+        if device.type == "cuda":
+            self.stream = torch.cuda.current_stream(device)
+            self.events = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+            self.events[0].record(self.stream)
+        else:
+            self.t0 = time.perf_counter_ns()
+
+    def stop(self) -> None:
+        if self.events is None:
+            self.ns = time.perf_counter_ns() - self.t0
+        else:
+            self.events[1].record(self.stream)
+
+    def report(self) -> None:
+        if self.events is not None:
+            self.events[1].synchronize()
+            self.ns = round(self.events[0].elapsed_time(self.events[1])
+                            * 1e6)
+        self.observe(max(1, self.ns))
 
 
 class _Launched:
     """One launched chunk: its outputs on the device, copied to the host
-    (blocking until the kernel has finished) by :meth:`result`."""
-    __slots__ = ("done", "counts")
+    (blocking until the kernel has finished) by :meth:`result`, which
+    also reports a traced launch's kernel time."""
+    __slots__ = ("done", "counts", "timer")
 
-    def __init__(self, done, counts):
+    def __init__(self, done, counts, timer=None):
         self.done = done
         self.counts = counts
+        self.timer = timer
 
     def result(self):
-        return self.done.cpu().numpy(), self.counts.cpu().numpy()
+        out = self.done.cpu().numpy(), self.counts.cpu().numpy()
+        if self.timer is not None:
+            self.timer.report()
+        return out
 
 
 class _BufSlot:

@@ -78,8 +78,9 @@ class SimMachine:
 
     ``backend`` selects the batched wave-execution kernel (``cuda`` or
     ``torch``; default: the ``REPRO_SIM_BACKEND`` environment variable,
-    else ``cuda``) and ``device`` the device it runs on (default
-    ``cuda``) — results are bit-identical on every backend.  A backend that
+    else ``cuda``) and ``device`` the device it runs on (default: the
+    first device of ``REPRO_SIM_DEVICES``, else ``cuda:0``) — results are
+    bit-identical on every backend.  A backend that
     cannot run (``cuda`` without a card) raises from :meth:`run_batch`; it
     is never replaced by another.  ``min_lanes`` is the thin-chunk
     scalar-oracle crossover forwarded to
@@ -161,13 +162,16 @@ class SimMachine:
 
             from repro_torch.core.batch_sim import (  # noqa: PLC0415
                 DEFAULT_MIN_LANES, BatchSimMachine)
+            from repro_torch.core.device_mesh import (  # noqa: PLC0415
+                resolve_devices)
             backend = self.backend or os.environ.get(
                 "REPRO_SIM_BACKEND", "cuda")
             min_lanes = (DEFAULT_MIN_LANES if self.min_lanes is None
                          else self.min_lanes)
+            device = (resolve_devices()[0] if self.device is None
+                      else self.device)
             batch = BatchSimMachine(
-                self.uarch, self.isa, backend=backend,
-                device="cuda" if self.device is None else self.device,
+                self.uarch, self.isa, backend=backend, device=device,
                 table_index=self._table_index, min_lanes=min_lanes)
             if self.devices is not None:
                 batch.set_devices(self.devices)

@@ -65,3 +65,8 @@ def build_jit_corpus(sizes=(128, 256, 512), device=None) -> dict:
 
     corpus["rmsnorm_256"] = (rmsnorm_op, m, 4 * 256 * 256)
     return corpus
+
+
+#: legacy name of the reference package (its ``repro.ops.corpus``
+#: re-export)
+build_corpus = build_jit_corpus

@@ -3,7 +3,8 @@
 The paper's machine-readable output (§6.4) only pays off if downstream
 consumers can *load* it without re-running the tool. The registry discovers
 exported XML artifacts (one per microarchitecture, written by
-``examples/export_models.py`` or any :class:`~repro_torch.core.engine.Campaign`),
+``examples/export_models_torch.py``, its reference twin, or any
+:class:`~repro_torch.core.engine.Campaign`),
 lazy-loads them on first use, and hot-reloads a uarch whose artifact changed
 on disk — so a re-characterization campaign becomes visible to a running
 service without a restart.

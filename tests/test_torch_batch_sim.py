@@ -502,3 +502,47 @@ def test_kernel_inputs_are_the_launched_chunks():
     assert wd.launches == before
     assert all(not s.leased for ring in m._device._rings.values()
                for s in ring)
+
+
+def test_device_stats_report_kernel_time_only_after_a_traced_wave():
+    """The executor's telemetry has the reference's keys: ``kernel_ns``
+    (kernel ns per ``device:<id>`` track) and ``stragglers`` appear only
+    once a traced wave has run, on the reference's ``jax`` backend and the
+    port's ``torch`` backend alike."""
+    pytest.importorskip("jax")
+    from repro.obs import tracer as r_obs
+    from repro_torch.obs import tracer as p_obs
+    ra, ri, pa, pi = _sim("sim_skl")
+    codes = _interesting_wave(r_isa.TEST_ISA)
+    ref = r_bs.BatchSimMachine(ra, ri, backend="jax", min_lanes=1)
+    port = _port_machine(pa, pi)
+    old = r_obs.get_tracer(), p_obs.get_tracer()
+    try:
+        r_obs.set_tracer(r_obs.Tracer(enabled=False))
+        p_obs.set_tracer(p_obs.Tracer(enabled=False))
+        ref.run_batch(codes)
+        port.run_batch(_port_codes(codes))
+        r_off, p_off = ref.device_stats(), port.device_stats()
+        assert set(p_off) == set(r_off)
+        assert not {"kernel_ns", "stragglers"} & set(p_off)
+        r_obs.set_tracer(r_obs.Tracer(enabled=True))
+        p_obs.set_tracer(p_obs.Tracer(enabled=True))
+        ref.run_batch(codes)
+        port.run_batch(_port_codes(codes))
+        r_on, p_on = ref.device_stats(), port.device_stats()
+        kernel_spans = [e for e in p_obs.get_tracer().events()
+                        if e["name"] == "wave.kernel"]
+    finally:
+        r_obs.set_tracer(old[0])
+        p_obs.set_tracer(old[1])
+    assert set(p_on) == set(r_on) == set(r_off) | {"kernel_ns", "stragglers"}
+    assert set(p_on["stragglers"]) == set(r_on["stragglers"])
+    for stats in (r_on, p_on):
+        assert len(stats["kernel_ns"]) == 1
+        (track, ns), = stats["kernel_ns"].items()
+        assert track.startswith("device:")
+        assert isinstance(ns, int) and ns > 0
+        assert list(stats["stragglers"]["ewma_s"]) == [track]
+        assert stats["stragglers"]["flagged"] == []
+    assert list(p_on["kernel_ns"]) == ["device:cpu"]
+    assert len(kernel_spans) == p_on["kernel_calls"] - p_off["kernel_calls"]

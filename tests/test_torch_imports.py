@@ -59,7 +59,9 @@ def test_package_has_the_slice_modules():
                  "kernels.ssd_scan", "core.predictor", "kernels.port_bound",
                  "service", "service.workload", "service.batch_predictor",
                  "service.protocol", "service.registry", "service.server",
-                 "service.client", "service.loadgen"):
+                 "service.client", "service.loadgen", "corpus.store",
+                 "corpus.generate", "corpus.score", "corpus.evaluate",
+                 "corpus.__main__"):
         assert f"repro_torch.{name}" in mods, name
 
 
@@ -106,11 +108,45 @@ def test_card_test_files_import_with_jax_and_repro_poisoned(card_file):
     assert proc.stdout.strip() == "ok"
 
 
+def test_corpus_cli_runs_with_jax_and_repro_poisoned(tmp_path):
+    """``python -m repro_torch.corpus`` answers ``--help`` and generates a
+    small corpus in a process where ``import jax`` and ``import repro``
+    fail, and the corpus is the reference's."""
+    run = ("import runpy, sys\n"
+           "for name in ('jax', 'jaxlib', 'repro'):\n"
+           "    sys.modules[name] = None\n"
+           "sys.argv[0] = 'repro_torch.corpus'\n"
+           "runpy.run_module('repro_torch.corpus', run_name='__main__')\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    helped = subprocess.run([sys.executable, "-c", run, "--help"], env=env,
+                            capture_output=True, text=True, timeout=120)
+    assert helped.returncode == 0, helped.stderr
+    for cmd in ("generate", "evaluate", "report"):
+        assert cmd in helped.stdout
+    out = tmp_path / "corpus"
+    made = subprocess.run(
+        [sys.executable, "-c", run, "generate", "--out", str(out),
+         "--seed", "3", "--blocks", "40", "--shard-size", "16",
+         "--uarch", "sim_skl", "--uarch", "sim_snb", "--max-len", "6"],
+        env=env, capture_output=True, text=True, timeout=120)
+    assert made.returncode == 0, made.stderr
+    from repro.corpus import CorpusSpec, generate_corpus
+    manifest = generate_corpus(
+        tmp_path / "ref", CorpusSpec(seed=3, blocks_per_uarch=40,
+                                     uarches=("sim_skl", "sim_snb"),
+                                     shard_size=16, max_len=6))
+    assert made.stdout.startswith(
+        f"corpus {manifest['corpus_id'][:12]}: 80 blocks in 6 shards")
+    assert (out / "manifest.json").read_bytes() == \
+        (tmp_path / "ref" / "manifest.json").read_bytes()
+
+
 def test_sources_never_mention_the_reference_package_in_imports():
     root = SRC / "repro_torch"
     entry_points = [SRC.parent / f for f in (
         "chip_smoke.py", "scripts/analyze_torch.py",
-        "examples/serve_models_torch.py")]
+        "examples/serve_models_torch.py", "examples/quickstart_torch.py",
+        "examples/export_models_torch.py")]
     for path in [*root.rglob("*.py"), *entry_points]:
         for line in path.read_text().splitlines():
             s = line.strip()
