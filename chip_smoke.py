@@ -21,7 +21,8 @@ drives the port's five paths on the card:
   ``simulate_batch`` on the card equals the CPU machine.  The port-bound
   kernel is then held against its plain version on every wave it served
   and on random, tie, all-zero and near-guard inputs, and timed beside its
-  plain version and its bound.
+  plain version and its bound: at the widest wave, and at each served
+  (C, S) for 32 to 9,936 rows.
 * **the entry scripts.**  ``examples/quickstart_torch.py`` and a copy of
   ``examples/export_models_torch.py`` run on the card in child processes
   that cannot import jax or ``repro``: the quickstart prints the CPU
@@ -109,8 +110,9 @@ def phase_device():
 
 
 def _sass_counts(lib_path):
-    """Per kernel function of the library: how many HMMA, HGMMA, FFMA and
-    MUFU.RSQ instructions its SASS holds (None without cuobjdump)."""
+    """Per kernel function of the library: how many HMMA, HGMMA, FFMA,
+    MUFU.RSQ and LDGSTS (cp.async) instructions its SASS holds (None
+    without cuobjdump)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         return None
@@ -120,7 +122,8 @@ def _sass_counts(lib_path):
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            counts[fn] = {"HMMA": 0, "HGMMA": 0, "FFMA": 0, "MUFU.RSQ": 0}
+            counts[fn] = {"HMMA": 0, "HGMMA": 0, "FFMA": 0, "MUFU.RSQ": 0,
+                          "LDGSTS": 0}
         elif fn is not None:
             for op in counts[fn]:
                 counts[fn][op] += line.count(op)
@@ -193,6 +196,21 @@ def phase_build():
             f"{max(c['HMMA'] for c in fns.values())}, FFMA "
             f"{min(c['FFMA'] for c in fns.values())}-"
             f"{max(c['FFMA'] for c in fns.values())}")
+    # the port bound copies its u tiles with cp.async (every instance whose
+    # last template argument, kTile, is true) and uses no tensor cores
+    fns = {f: c for f, c in _sass_counts(pb.LIBRARY.path).items()
+           if "port_bound_kernel" in f}
+    require(len(fns) > 0, "port_bound_kernel not found in the SASS")
+    tiled = [f for f in fns if f.endswith("Lb1EEv4Args")]
+    require(len(tiled) > 0, "no port_bound_kernel instance copies tiles")
+    for f, c in fns.items():
+        require(c["HMMA"] + c["HGMMA"] == 0, f"{f}: tensor-core products")
+    for f in tiled:
+        require(fns[f]["LDGSTS"] > 0, f"{f}: no cp.async in its SASS")
+    log(f"[build] SASS port_bound_kernel: {len(fns)} instantiations, "
+        f"{len(tiled)} copying tiles with cp.async (LDGSTS "
+        f"{min(fns[f]['LDGSTS'] for f in tiled)}-"
+        f"{max(fns[f]['LDGSTS'] for f in tiled)}), no HMMA or HGMMA")
 
 
 def phase_card_tests():
@@ -894,11 +912,80 @@ def _wave_breakdown(bp, blocks):
     return parts
 
 
+# rows a launch at which the served shapes are timed: a small served wave,
+# the serve phase's waves, the corpus's wave width and the widest wave
+SERVED_ROWS = (32, 256, 1024, 2048, 9936)
+
+
+def _bcs(args):
+    """``[B, C, S]`` of a port-bound launch's ``(u, mask, size)``."""
+    return [args[0].shape[0], *args[1].shape]
+
+
+def _port_bound_bytes(B, C, S):
+    """Bytes one launch must move: u, mask and size read once, the (2, B)
+    result written once."""
+    return 4 * (B * C + C * S + S + 2 * B)
+
+
+def _served_shapes(launched):
+    """For each served (C, S), the widest predictor's tables and its
+    served rows: rows of every wave launched with those tables."""
+    groups = {}
+    for u, mask, size in launched:
+        g = groups.setdefault(id(mask), [mask, size, []])
+        g[2].append(u)
+    shapes = {}
+    for mask, size, us in groups.values():
+        key = tuple(mask.shape)
+        rows = torch.cat(us)
+        if key not in shapes or len(rows) > len(shapes[key][2]):
+            shapes[key] = (mask, size, rows)
+    return shapes
+
+
+def _served_shape_times(launched):
+    """The kernel at each served (C, S) and every ``SERVED_ROWS`` count,
+    on served rows drawn with replacement (seeded): equal to its plain
+    version, its device ms a launch (200 back to back) and its bound."""
+    from repro_torch.kernels import port_bound as pb
+    rng = np.random.default_rng(SERVE_SEED)
+    out = []
+    for (C, S), (mask, size, rows) in sorted(_served_shapes(launched)
+                                             .items()):
+        for B in SERVED_ROWS:
+            pick = torch.from_numpy(rng.integers(0, len(rows), B)).to(
+                rows.device)
+            args = (rows[pick].contiguous(), mask, size)
+            err = port_bound_vs_plain(args)
+            nbytes = _port_bound_bytes(B, C, S)
+            bound_ms, bound_by = _bound(nbytes, _port_bound_ops(*args),
+                                        H100_SXM["peak_fp32_flops"])
+            ms = _device_ms(pb.port_bound, args, 200, bound_ms)
+            out.append({"shape_BCS": [B, C, S], "device_ms": ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "bytes": nbytes, "max_abs_err": err})
+            log(f"[serve-kernel] served shape B={B} C={C} S={S}: device "
+                f"{ms:.5f} ms a launch, bound {bound_ms:.6f} ms "
+                f"({bound_by}), equal to the plain version")
+    return out
+
+
+def _port_bound_ops(u, mask, size):
+    """What these inputs need: an add per (row, combination with uops,
+    candidate holding it), and two products and a compare per (row,
+    candidate)."""
+    adds = int(((u != 0).sum(0, dtype=torch.int64)
+                * mask.sum(1, dtype=torch.int64)).sum())
+    return adds + 3 * u.shape[0] * mask.shape[1]
+
+
 def phase_serve_kernel(launched, wide_args):
     """The port-bound kernel against its plain version on the card: every
     wave the serve path launched, then random, tie, all-zero and
     near-guard inputs; then the widest wave's launch timed beside its
-    plain version and its bound."""
+    plain version and its bound; then the kernel at every served
+    shape."""
     from repro_torch.kernels import port_bound as pb
     err = 0.0
     for args in launched:
@@ -912,12 +999,8 @@ def phase_serve_kernel(launched, wide_args):
     u, mask, size = wide_args
     B, C = u.shape
     S = mask.shape[1]
-    nbytes = 4 * (B * C + C * S + S + 2 * B)
-    # what these inputs need: an add per (row, combo with uops, candidate
-    # holding it), and two products and a compare per (row, candidate)
-    adds = int(((u != 0).sum(0, dtype=torch.int64)
-                * mask.sum(1, dtype=torch.int64)).sum())
-    ops = adds + 3 * B * S
+    nbytes = _port_bound_bytes(B, C, S)
+    ops = _port_bound_ops(*wide_args)
     bound_ms, bound_by = _bound(nbytes, ops, H100_SXM["peak_fp32_flops"])
     ms = _time_ms(pb.port_bound, wide_args, reps=200)
     device_ms = _device_ms(pb.port_bound, wide_args, 200, bound_ms)
@@ -926,9 +1009,12 @@ def phase_serve_kernel(launched, wide_args):
         f"a call (device {device_ms:.4f} ms a launch, 200 back to back), "
         f"plain {plain_ms:.3f} ms, bound {bound_ms:.6f} ms ({bound_by}: "
         f"{nbytes} bytes, {ops} operations)")
+    served = _served_shape_times(launched)
     return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
-            "shape_BCS": [B, C, S]}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "launches_BCS": [_bcs(args) for args in launched],
+            "max_abs_err": max([err] + [r["max_abs_err"] for r in served]),
+            "shape_BCS": [B, C, S], "served_shapes": served}
 
 # ------------------------------------------- entry scripts and the corpus
 # a child process that cannot import jax or the reference package, then
@@ -1073,16 +1159,20 @@ def phase_scripts(models):
 
 
 class _Widest(list):
-    """A ``launched_args`` sink that counts the launches and keeps only the
-    widest one's inputs (by ``key``)."""
+    """A ``launched_args`` sink that counts the launches, keeps only the
+    widest one's inputs (by ``key``) and each launch's ``shape``."""
 
-    def __init__(self, key):
+    def __init__(self, key, shape=None):
         super().__init__()
         self.key = key
+        self.shape = shape
         self.n = 0
+        self.shapes = []
 
     def append(self, args):
         self.n += 1
+        if self.shape is not None:
+            self.shapes.append(self.shape(args))
         if not self or self.key(args) > self.key(self[0]):
             self[:] = [args]
 
@@ -1197,7 +1287,7 @@ def phase_corpus():
 
         # the main path, traced, its launches counted from 0
         wave_sink = _Widest(lambda a: a[0].shape[0] * a[0].shape[1])
-        predict_sink = _Widest(lambda a: a[0].shape[0])
+        predict_sink = _Widest(lambda a: a[0].shape[0], _bcs)
         machines, predictors = [], []
         prev = obs.set_tracer(obs.Tracer(enabled=True))
         try:
@@ -1214,6 +1304,7 @@ def phase_corpus():
                 eval_s = time.perf_counter() - t0
                 launches = {"wave_dispatch": wd.launches,
                             "port_bound": pb.launches}
+                pb_shapes = list(predict_sink.shapes)
             events = obs.get_tracer().events()
         finally:
             obs.set_tracer(prev)
@@ -1372,10 +1463,8 @@ def phase_corpus():
         perr = port_bound_vs_plain(pargs)
         B, C = pargs[0].shape
         Sc = pargs[1].shape[1]
-        nbytes = 4 * (B * C + C * Sc + Sc + 2 * B)
-        adds = int(((pargs[0] != 0).sum(0, dtype=torch.int64)
-                    * pargs[1].sum(1, dtype=torch.int64)).sum())
-        pbound, pby = _bound(nbytes, adds + 3 * B * Sc,
+        pbound, pby = _bound(_port_bound_bytes(B, C, Sc),
+                             _port_bound_ops(*pargs),
                              H100_SXM["peak_fp32_flops"])
         wide_pb = {"shape_BCS": [B, C, Sc], "max_abs_err": perr,
                    "ms": _time_ms(pb.port_bound, pargs, reps=50),
@@ -1396,6 +1485,7 @@ def phase_corpus():
                "resume_s": resume_s, "cpu_check_s": cpu_s,
                "served_check_s": served_s, "stages_s": walls,
                "wave_kernel_ns": kernel_ns, "launches": launches,
+               "port_bound_launches_BCS": pb_shapes,
                "engine_stats": es, "artifact_sha256": sha,
                "scores": {ua: {"mape": sc["mape"],
                                "kendall_tau": sc["kendall_tau"]}
@@ -2304,6 +2394,16 @@ def main():
         "corpus_widest": corpus["widest_port_bound"]})
     report["corpus"] = {k: v for k, v in corpus.items()
                         if not k.startswith("widest_")}
+    # the port bound's launch mix, for port_bound_ablation.py --mix
+    from repro_torch.kernels._build import build_dir
+    mix = build_dir() / "port_bound_launches.json"
+    mix.parent.mkdir(parents=True, exist_ok=True)
+    mix.write_text(json.dumps({
+        "serve": serve_kernel["launches_BCS"],
+        "corpus": corpus["port_bound_launches_BCS"]}))
+    log(f"[serve-kernel] the port bound's launch mix ({len(served_waves)} "
+        f"served, {len(corpus['port_bound_launches_BCS'])} corpus "
+        f"launches, (B, C, S) each) written to {mix}")
     report["scripts"] = scripts
     print(smi, flush=True)
     print(json.dumps(report), flush=True)

@@ -9,7 +9,10 @@ the one device kernel every served prediction goes through.  Per row of
 ``C x S`` int32, 0/1; ``size`` ``S`` int32, each candidate's port count,
 at least 1), and the pair ``(num, den) = (demand[s], size[s])`` of the
 largest ratio, by the exact compare ``an * bd < bn * ad`` from ``(0, 1)``.
-The caller divides ``num / den`` in float64.
+The result is one int32 ``(2, B)`` tensor, ``num`` in row 0 and ``den``
+in row 1 (``num, den = port_bound(...)`` unpacks the two rows as views),
+so a caller copies it back once.  The caller divides ``num / den`` in
+float64.
 
 Equal ratios may come back as different pairs (the kernel, the plain
 version and the reference's jax reduce each break ties their own way);
@@ -35,7 +38,7 @@ launches = 0
 
 def _bind(lib):
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.port_bound_launch.argtypes = [vp, vp, vp, vp, vp, i64, i32, i32, vp]
+    lib.port_bound_launch.argtypes = [vp, vp, vp, vp, i64, i32, i32, vp]
     lib.port_bound_launch.restype = ctypes.c_int
 
 
@@ -55,22 +58,21 @@ def _check(u, mask, size):
 
 
 def port_bound(u, mask, size):
-    """``(num, den)``, two int32 ``(B,)`` tensors on ``u``'s device."""
+    """The int32 ``(2, B)`` tensor ``[num, den]`` on ``u``'s device."""
     global launches
     _check(u, mask, size)
     card, (u, mask, size) = card_inputs("port_bound", u, mask, size)
     if not card:
         return port_bound_ref(u, mask, size)
     B, C = u.shape
-    num = torch.empty(B, dtype=torch.int32, device=u.device)
-    den = torch.empty(B, dtype=torch.int32, device=u.device)
+    out = torch.empty((2, B), dtype=torch.int32, device=u.device)
     if B == 0:
-        return num, den
+        return out
     LIBRARY.launch("port_bound_launch", u.device, u.data_ptr(),
-                   mask.data_ptr(), size.data_ptr(), num.data_ptr(),
-                   den.data_ptr(), B, C, mask.shape[1])
+                   mask.data_ptr(), size.data_ptr(), out.data_ptr(), B, C,
+                   mask.shape[1])
     launches += 1
-    return num, den
+    return out
 
 
 def port_bound_ref(u, mask, size):
@@ -90,4 +92,4 @@ def port_bound_ref(u, mask, size):
         take = an * bd < bn * ad
         an = torch.where(take, bn, an)
         ad = torch.where(take, bd, ad)
-    return an, ad
+    return torch.stack((an, ad))

@@ -292,15 +292,16 @@ class BatchPredictor:
 
     def _device_call(self, u: np.ndarray):
         """``(num, den)`` of every row of ``u`` as host int32 arrays: one
-        launch of exactly ``len(u)`` rows on this call's own tensors,
-        copied to the host before it returns (worker threads share the
-        predictor)."""
+        launch of exactly ``len(u)`` rows on this call's own tensors, its
+        ``(2, len(u))`` result copied to the host once before it returns
+        (worker threads share the predictor)."""
         mask_d, size_d = self._device_tables()
         u_d = torch.from_numpy(u).to(self.device)
-        num, den = port_bound.port_bound(u_d, mask_d, size_d)
+        out = port_bound.port_bound(u_d, mask_d, size_d)
         if self.launched_args is not None:
             self.launched_args.append((u_d, mask_d, size_d))
-        return num.cpu().numpy(), den.cpu().numpy()
+        num, den = out.cpu().numpy()
+        return num, den
 
     def _device_tables(self):
         """The candidate mask and sizes on the device, uploaded once per

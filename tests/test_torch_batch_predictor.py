@@ -258,6 +258,33 @@ def test_device_waves_go_through_the_kernel_wrapper(models, monkeypatch):
     assert bp.backend_stats()["device_waves"] == 1
 
 
+def test_device_call_copies_the_result_back_once(models, monkeypatch):
+    """``_device_call`` takes the wrapper's one ``(2, B)`` result and copies
+    it to the host in one ``.cpu()``; the rows it returns give the numpy
+    backend's predictions."""
+    _, model = models["sim_skl"]
+    copies = []
+
+    class Result:                       # the wrapper's tensor, counted
+        def __init__(self, out):
+            self.out = out
+
+        def cpu(self):
+            copies.append(tuple(self.out.shape))
+            return self.out
+
+    monkeypatch.setattr(pb, "port_bound",
+                        lambda u, mask, size: Result(pb.port_bound_ref(
+                            u, mask, size)))
+    bp = _port(model, "torch", min_device_blocks=1)
+    blocks = random_blocks(model, P_ISA, 40, seed=5)
+    got = bp.predict_batch(blocks)
+    rows = bp.backend_stats()["device_blocks"]
+    assert copies == [(2, rows)] and rows > 0
+    want = _port(model, "numpy").predict_batch(blocks)
+    assert [_bits(g) for g in got] == [_bits(w) for w in want]
+
+
 @pytest.mark.parametrize("name", ["jax", "auto", "pallas", "gpu", ""])
 def test_unknown_backend_names_raise(models, name):
     _, model = models["sim_skl"]
@@ -359,6 +386,28 @@ def test_port_bound_ref_equals_the_jax_kernel(case):
     assert np.array_equal(got, host.view(np.int64))
     if case == "zero-rows":
         assert np.array_equal(num.numpy()[::3], np.zeros(14, np.int32))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_port_bound_gives_one_2_by_B_tensor(case):
+    """The wrapper (on the CPU, its plain version) and ``port_bound_ref``
+    each return one contiguous int32 ``(2, B)`` tensor, ``num`` in row 0
+    and ``den`` in row 1; unpacking it gives the two rows as views."""
+    u, mask, size = (torch.from_numpy(a) for a in CASES[case])
+    B = len(u)
+    for fn in (pb.port_bound, pb.port_bound_ref):
+        out = fn(u, mask, size)
+        assert isinstance(out, torch.Tensor)
+        assert out.shape == (2, B) and out.dtype == torch.int32
+        assert out.is_contiguous()
+        num, den = out
+        assert num.data_ptr() == out.data_ptr()
+        assert den.data_ptr() == out.data_ptr() + 4 * B
+        assert num._base is out and den._base is out
+        assert bool((den > 0).all())
+        rnum, rden = _ref_kernel(mask.numpy(), size.numpy())(u.numpy())
+        assert np.array_equal(_quotients(num.numpy(), den.numpy()),
+                              _quotients(rnum[:B], rden[:B]))
 
 
 def test_port_bound_wrapper_runs_the_plain_version_on_the_cpu():

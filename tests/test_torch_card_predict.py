@@ -77,10 +77,127 @@ def test_random_inputs(card, B, C, S):
 
 @pytest.mark.parametrize("C,S", [(11, 1100), (32, 4096), (1, 12_300)])
 def test_tables_too_large_for_shared_memory(card, C, S):
-    """(C*S + S) * 4 bytes above 48 KB: mask and size are read through
-    L1/L2."""
+    """(C*S + S) * 4 bytes above the 48 KB a block takes without opting in.
+    (11, 1100) and (1, 12,300) opt in to dynamic shared memory as padded
+    int tables; (32, 4096), 528 KB, is above the 227 KB opt-in and is read
+    through L1/L2."""
     assert (C * S + S) * 4 > 48 * 1024
     assert_kernel_equals_plain(*random_case(S, 700, C, S), card)
+
+
+# the persistent design: a CTA takes ceil(B / CTAs) rows, up to what a
+# 16 KB buffer holds (at least a pass of at most 1024 rows), and at most
+# two CTAs run a streaming multiprocessor
+MAX_TILE_ROWS = 1024
+SMEM_OPTIN = 227 * 1024
+
+
+@pytest.mark.parametrize("B", [2, 3, 5, 7, 9, 17, 33, 63, 65, 255, 257,
+                               1023, 4099, 9937])
+def test_rows_off_the_tile_and_the_lane_group(card, B):
+    """Row counts that are multiples of neither a row tile nor a lane
+    group: the last tile is ragged and its idle groups still take part in
+    the warp's ballots and shuffles."""
+    assert_kernel_equals_plain(*random_case(B, B, 11, 71, zero_rows=0.1),
+                               card)
+
+
+@pytest.mark.parametrize("C,S", [(9, 31), (11, 71)])
+def test_more_row_tiles_than_persistent_ctas(card, C, S):
+    """Every CTA walks at least three row tiles: double buffering wraps."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    B = 3 * 2 * sms * MAX_TILE_ROWS + 13
+    assert_kernel_equals_plain(*random_case(B + C, B, C, S, zero_rows=0.2),
+                               card)
+
+
+@pytest.mark.parametrize("C", [31, 32, 33])
+@pytest.mark.parametrize("S", [1, 71, 300])
+def test_combinations_around_the_bit_set(card, C, S):
+    """C = 32 is the last count whose row's nonzero combinations fit one
+    32-bit ballot set, summed over a padded table; C = 33 takes the plain
+    loop over every combination.  Dense rows and sparse ones."""
+    for seed, zero in ((C * S, 0.0), (C * S + 1, 0.5)):
+        u, mask, size = random_case(seed, 3000, C, S, zero_rows=zero)
+        u[u % 3 == 0] = 0                   # scattered zero counts
+        assert_kernel_equals_plain(u, mask, size, card)
+
+
+@pytest.mark.parametrize("C,S,B", [(33, 400, 900), (11, 4000, 900),
+                                   (32, 1000, 900), (11, 8000, 900),
+                                   (33, 2000, 900), (11, 30_000, 900),
+                                   (1000, 40, 20_000), (1000, 100, 20_000)])
+def test_tables_above_48_kb_and_above_the_opt_in(card, C, S, B):
+    """Above 48 KB the table opts in to dynamic shared memory, up to the
+    227 KB opt-in: the int table at (33, 400); at C <= 32 the padded int
+    table (each mask row a multiple of a pass of candidates, at most 127
+    columns longer) at (11, 4000) and (32, 1000).  Above the opt-in it is
+    read through L1/L2: (33, 2000), and at C <= 32 (11, 8000) and
+    (11, 30,000).  At C = 1000 and 20,000 rows two u tiles of 64 rows do
+    not fit: u is read in place, with the int table in shared memory
+    (S = 40) or not (S = 100)."""
+    ints = (C * S + S) * 4
+    assert ints > 48 * 1024
+    if C <= 32:         # padded, with two small u buffers, or not at all
+        in_smem = (C + 1) * (S + 127) * 4 < SMEM_OPTIN - 4096
+        assert in_smem == ((C, S) in {(11, 4000), (32, 1000)})
+        assert in_smem or ints > SMEM_OPTIN
+    if C == 1000:
+        assert 2 * 64 * C * 4 > SMEM_OPTIN
+        assert (ints <= SMEM_OPTIN) == (S == 40)
+    assert_kernel_equals_plain(*random_case(C + S, B, C, S,
+                                            zero_rows=0.1), card)
+
+
+def _raw_launch(u, mask, size):
+    """The C entry point on ``u`` as it is: no copy, even off 16 bytes."""
+    B, C = u.shape
+    out = torch.empty((2, B), dtype=torch.int32, device=u.device)
+    pb.LIBRARY.launch("port_bound_launch", u.device, u.data_ptr(),
+                      mask.data_ptr(), size.data_ptr(), out.data_ptr(), B, C,
+                      mask.shape[1])
+    return out
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("B,C", [(1, 1), (2, 1), (5, 3), (77, 5), (300, 11),
+                                 (4099, 11), (600, 33)])
+def test_u_off_16_byte_alignment(card, offset, B, C):
+    """u starting 4, 8 or 12 bytes past a 16-byte boundary, rows of C * 4
+    bytes: the kernel copies the unaligned head and tail of every tile 4
+    bytes at a time.  Straight through the C entry point, and through the
+    wrapper, which copies such a view first."""
+    u, mask, size = random_case(B * C + offset, B, C, 71, zero_rows=0.1)
+    flat = torch.zeros(B * C + 8, dtype=torch.int32, device=card)
+    flat[offset:offset + B * C] = torch.from_numpy(u.reshape(-1)).to(card)
+    view = flat[offset:offset + B * C].view(B, C)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4 * offset
+    mask_d, size_d = (torch.from_numpy(a).to(card) for a in (mask, size))
+    want = quotients(*pb.port_bound_ref(view, mask_d, size_d))
+    got = _raw_launch(view, mask_d, size_d)
+    torch.cuda.synchronize()
+    assert np.array_equal(quotients(*got), want)
+    assert np.array_equal(quotients(*pb.port_bound(view, mask_d, size_d)),
+                          want)
+    assert np.array_equal(flat[:offset].cpu().numpy(),
+                          np.zeros(offset, np.int32))
+
+
+def test_one_2_by_B_output(card):
+    """One int32 (2, B) tensor on the card, num in row 0 and den in row
+    1; unpacking gives the rows as views; one launch a call."""
+    args = [torch.from_numpy(a).to(card)
+            for a in random_case(4, 1000, 11, 71)]
+    before = pb.launches
+    out = pb.port_bound(*args)
+    assert pb.launches == before + 1
+    assert out.shape == (2, 1000) and out.dtype == torch.int32
+    assert out.is_contiguous() and out.device == args[0].device
+    num, den = out
+    assert num._base is out and den._base is out
+    assert den.data_ptr() == out.data_ptr() + 4 * 1000
+    assert np.array_equal(quotients(num, den),
+                          quotients(*pb.port_bound_ref(*args)))
 
 
 def test_ties_zero_rows_and_the_guard(card):

@@ -61,7 +61,8 @@ def test_package_has_the_slice_modules():
                  "service.protocol", "service.registry", "service.server",
                  "service.client", "service.loadgen", "corpus.store",
                  "corpus.generate", "corpus.score", "corpus.evaluate",
-                 "corpus.__main__"):
+                 "corpus.__main__", "tools.port_bound_ablation",
+                 "tools.port_bound_crossover"):
         assert f"repro_torch.{name}" in mods, name
 
 
