@@ -5,7 +5,7 @@
 Builds the port's six kernel libraries from ``src/repro_torch/csrc`` with
 nvcc, in parallel, runs the jax-free card tests
 (``python -m pytest -m cuda tests/test_torch_card_*.py``) against them, and
-drives the port's five paths on the card:
+drives the port's paths on the card:
 
 * **characterize -> export.**  The wave-dispatch kernel is held bit for
   bit against its plain PyTorch version on the card; then a ``Campaign``
@@ -36,6 +36,12 @@ drives the port's five paths on the card:
   ``torch`` backend bit for bit; ``sim_skl`` served through
   ``client_predict_fn`` gives the in-process artifact on both wires; the
   widest launch of each kernel is held against its plain version.
+* **trace export and the wave report.**  The corpus run's trace is
+  written by ``repro_torch.obs.export`` as Chrome trace-event JSON and as
+  JSONL, read back from both (the same events) and reported by
+  ``repro_torch.analysis.wave_report`` (the same report): one ``kernel``
+  span a traced wave-dispatch launch, ``device:cuda:0`` busy for the
+  executors' ``kernel_ns``, a named bottleneck.
 * **hardware characterization.**  The four unit blockers (tensor cores,
   FP32 pipe, MUFU, HBM) are held against their plain versions on the card
   at the reference's default sizes and at sizes that fill the card; then
@@ -53,6 +59,17 @@ drives the port's five paths on the card:
   kernels are timed alone as well, and its f32 error is attributed: the
   kernel and the f32 plain version, each against the plain version on
   f64 copies of the inputs.
+* **model serving** (``repro_torch.models``, ``train/serve.py``).
+  SmolLM-360M uncut (f32 weights, bf16 compute): 8 x 128 tokens prefilled,
+  64 greedy decode steps, ``generate`` giving the same ids; Qwen2-VL-2B,
+  Phi-3.5-MoE, Mamba2-2.7B and Zamba2-2.7B at full width with their depth
+  cut: 2 x 256 positions and 8 steps.  Logits finite; in f32 compute a
+  decode step after a prefill equals a prefill one token longer, and the
+  card's logits equal the CPU's on the same weights at 2 layers (one
+  super-block for the hybrid).  Prefill tokens/s, decode ms a step and
+  peak memory beside the card's name and power limit.  The models are
+  plain PyTorch, as the reference's are plain jnp: no kernel of the port
+  is on this path.
 
 Every phase prints a line; any failure exits non-zero and prints no
 result.  The last three lines are the card's name and power limit, the
@@ -1289,7 +1306,8 @@ def phase_corpus():
         wave_sink = _Widest(lambda a: a[0].shape[0] * a[0].shape[1])
         predict_sink = _Widest(lambda a: a[0].shape[0], _bcs)
         machines, predictors = [], []
-        prev = obs.set_tracer(obs.Tracer(enabled=True))
+        tracer = obs.Tracer(enabled=True)
+        prev = obs.set_tracer(tracer)
         try:
             with _corpus_hooks(wave_sink, predict_sink, machines,
                                predictors):
@@ -1305,7 +1323,7 @@ def phase_corpus():
                 launches = {"wave_dispatch": wd.launches,
                             "port_bound": pb.launches}
                 pb_shapes = list(predict_sink.shapes)
-            events = obs.get_tracer().events()
+            events = tracer.events()
         finally:
             obs.set_tracer(prev)
         require(launches["wave_dispatch"] > 0, "the corpus never launched "
@@ -1492,7 +1510,301 @@ def phase_corpus():
                           for ua, sc in scores.items()},
                "widest_wave_dispatch": wide_wave,
                "widest_port_bound": wide_pb}
+    return out, tracer
+
+
+# ---------------------------------------------------------- trace report
+def phase_trace_report(tracer, corpus, smi):
+    """The ``[corpus]`` phase's trace through the port's exporter and wave
+    report: written as Chrome trace-event JSON and as JSONL, each read back
+    with ``load_events`` (the same ``ph``, ``name``, ``ts_us``, ``dur_us``
+    and ``args`` event for event; the Chrome format renumbers ``tid``s),
+    and the report built from each file (equal).  The ``kernel`` stage
+    holds one span per traced wave-dispatch launch, the one device track
+    ``device:cuda:0`` is busy for the executors' ``kernel_ns`` (the span
+    carries the kernel's CUDA-event interval), and a bottleneck is
+    named."""
+    import tempfile
+
+    from repro_torch.analysis.wave_report import (format_wave_report,
+                                                  wave_report)
+    from repro_torch.obs.export import (load_events, write_chrome_trace,
+                                        write_jsonl)
+
+    launches = corpus["launches"]["wave_dispatch"]
+    kernel_us = sum(corpus["wave_kernel_ns"].values()) / 1e3
+    keys = ("ph", "name", "ts_us", "dur_us", "args")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        t0 = time.perf_counter()
+        paths = (write_chrome_trace(Path(tmp) / "corpus.trace.json", tracer),
+                 write_jsonl(Path(tmp) / "corpus.trace.jsonl", tracer))
+        sizes = [os.path.getsize(p) for p in paths]
+        loaded = [load_events(p) for p in paths]
+        io_s = time.perf_counter() - t0
+    require(len(loaded[0]) == len(loaded[1]) == len(tracer.events()) > 0,
+            f"events read back {[len(e) for e in loaded]} of "
+            f"{len(tracer.events())}")
+    require([[e[k] for k in keys] for e in loaded[0]]
+            == [[e[k] for k in keys] for e in loaded[1]],
+            "the two formats read back different events")
+    reps = [wave_report(e) for e in loaded]
+    require(reps[0] == reps[1], "the two formats give different reports")
+    rep = reps[0]
+    kernel = rep["stages"]["kernel"]
+    require(kernel["count"] == launches,
+            f"{kernel['count']} kernel spans for {launches} traced "
+            f"wave-dispatch launches")
+    require(set(rep["devices"]) == {"device:cuda:0"},
+            f"device tracks {sorted(rep['devices'])}")
+    busy_us = rep["devices"]["device:cuda:0"]
+    require(abs(busy_us - kernel_us) <= 1e-3,
+            f"device busy {busy_us} us against kernel_ns {kernel_us} us")
+    require(rep["bottleneck"] not in ("", "idle"),
+            f"bottleneck {rep['bottleneck']!r}")
+    log(f"[trace-report] the [corpus] trace: {len(loaded[0])} events, "
+        f"{sizes[0]} bytes as Chrome JSON, {sizes[1]} as JSONL (written "
+        f"and read back in {io_s:.2f} s), the same events and report from "
+        f"both; {kernel['count']} kernel spans = {launches} traced "
+        f"launches; device:cuda:0 busy {busy_us:.3f} us = kernel_ns "
+        f"{kernel_us:.3f} us ({smi})")
+    for line in format_wave_report(rep).splitlines():
+        log(f"[trace-report] {line}")
+    return {"events": len(loaded[0]), "bytes_chrome": sizes[0],
+            "bytes_jsonl": sizes[1], "kernel_spans": kernel["count"],
+            "device_busy_us": busy_us, "kernel_ns_us": kernel_us,
+            "bottleneck": rep["bottleneck"],
+            "stages_us": {k: v["us"] for k, v in rep["stages"].items()
+                          if v["count"]},
+            "lock_wait_share": rep["lock_wait"]["share"],
+            "wall_us": rep["wall_us"]}
+
+
+# ---------------------------------------------------------- model serving
+# (arch, depth cut: {field: value} or {}, batch, prefill positions, decode
+# steps); SmolLM-360M uncut, the other families at full width
+MODELS = (("smollm_360m", {}, 8, 128, 64),
+          ("qwen2_vl_2b", {"num_layers": 4}, 2, 256, 8),
+          ("phi3_5_moe_42b", {"num_layers": 2}, 2, 256, 8),
+          ("mamba2_2_7b", {"num_layers": 4}, 2, 256, 8),
+          ("zamba2_2_7b", {"num_layers": 6}, 2, 256, 8))
+MODEL_SEED = 0
+# prefill(S) + decode(1) against prefill(S + 1), f32 compute on the card:
+# the reference's own consistency tolerance (tests/test_models_smoke.py)
+CONSISTENCY_TOL = 2e-3
+# the card against the CPU, f32 compute, on the same weights and inputs
+CARD_CPU_TOL = 1e-3
+CHECK_LAYERS = 2         # depth of the card = CPU check
+CHECK_SEQ = 64           # positions of both checks
+PROFILE_STEPS = 4        # decode steps under torch.profiler
+PREFILL_RUNS = 3         # timed prefills, their median reported
+
+
+def _on(model, cfg, device=None, layers=None):
+    """``model``'s weights under ``cfg`` (shared, or copied to ``device``),
+    the stacked layer dimension cut to its first ``layers``."""
+    from repro_torch.models.model import build_model
+    m = build_model(cfg, device="meta")
+    sd = {k: (v[:layers] if layers and k.startswith("layers.") else v)
+          for k, v in model.state_dict().items()}
+    m.load_state_dict({k: v.to(device) if device else v
+                       for k, v in sd.items()}, strict=True, assign=True)
+    return m
+
+
+def _model_batch(cfg, B, seq, device, gen):
+    """``B`` rows of ``seq`` random tokens; a VLM row is
+    ``num_patch_tokens`` random patch embeddings, then the tokens."""
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, seq),
+                                     generator=gen, device=device,
+                                     dtype=torch.int32)}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = 0.02 * torch.randn(
+            (B, cfg.num_patch_tokens, cfg.d_model), generator=gen,
+            device=device)
+    return batch
+
+
+def _rows(batch, n):
+    return {k: v[:n] for k, v in batch.items()}
+
+
+def phase_models(smi):
+    """The model substrate's serving path on the card, through the entry
+    points a user calls (``build_model``, ``init``, ``generate``,
+    ``prefill``, ``decode_step``): SmolLM-360M uncut (f32 weights, bf16
+    compute), 8 x 128 tokens then 64 greedy decode steps; one config of
+    each other family at full width with its depth cut, 2 x 256 positions
+    then 8 steps.  Each must give finite logits; the same weights in f32
+    compute must continue a prefill by a decode step as a prefill one
+    token longer does (``CONSISTENCY_TOL``), and must give the CPU's
+    logits at ``CHECK_LAYERS`` layers (``CARD_CPU_TOL``)."""
+    out = []
+    for arch, cut, B, S, steps in MODELS:
+        torch.cuda.empty_cache()
+        out.append(_serve_model(arch, cut, B, S, steps, smi))
     return out
+
+
+def _device_busy(prof):
+    """(device-busy seconds, kernel launches) of a ``torch.profiler``
+    window, or (None, None) when it recorded no device time."""
+    busy, launches = 0.0, 0
+    for item in prof.key_averages():
+        us = getattr(item, "self_device_time_total", None)
+        if us is None:
+            us = getattr(item, "self_cuda_time_total", 0)
+        if us:
+            busy += us / 1e6
+            launches += item.count
+    return (busy, launches) if busy else (None, None)
+
+
+def _serve_model(arch, cut, B, S, steps, smi):
+    """One configuration of :func:`phase_models`; everything it allocates
+    on the card is freed when it returns."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import load_config
+    from repro_torch.models.model import build_model
+    from repro_torch.train.serve import generate, make_serve_step
+
+    card = torch.device("cuda:0")
+    full = load_config(arch)
+    cfg = full.replace(**cut)
+    gen = torch.Generator(device=card).manual_seed(MODEL_SEED)
+    before = torch.cuda.memory_allocated()   # what earlier phases hold
+    model = build_model(cfg, device=card).init(gen)
+    params = sum(p.numel() * p.element_size() for p in model.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()   # serving's peak, not init's
+    batch = _model_batch(cfg, B, S, card, gen)
+    positions = S + (cfg.num_patch_tokens if cfg.family == "vlm" else 0)
+    # generate's decode headroom, S + (steps + 1) + 8, over all positions
+    pad = positions + steps + 9
+    step = make_serve_step(model)
+    # warm-up at the timed shapes: the first calls pay cuBLAS and
+    # allocator set-up
+    lg, st = model.prefill(batch, pad_to=pad)
+    step(st, torch.argmax(lg, -1).to(torch.int32))
+    del lg, st
+    prefill_runs = []
+    for _ in range(PREFILL_RUNS):
+        logits = state = None   # the previous run's state is freed first
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state = model.prefill(batch, pad_to=pad)
+        torch.cuda.synchronize()
+        prefill_runs.append(time.perf_counter() - t0)
+    prefill_s = float(np.median(prefill_runs))
+    require(bool(torch.isfinite(logits).all()),
+            f"{arch}: prefill logits not finite")
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    ids = [tok]
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        tok, lg, state = step(state, tok)
+        ids.append(tok)
+    torch.cuda.synchronize()
+    decode_ms = 1e3 * (time.perf_counter() - t0) / steps
+    require(bool(torch.isfinite(lg).all()),
+            f"{arch}: decode logits not finite")
+    ids = torch.stack(ids, dim=1)
+    peak = torch.cuda.max_memory_allocated()
+    # the device time of PROFILE_STEPS more decode steps, over the
+    # unprofiled steps' wall time: the profiler's host overhead stretches
+    # its own window, not the device work
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_STEPS):
+            tok, lg, state = step(state, tok)
+        torch.cuda.synchronize()
+    busy_s, kernels = _device_busy(prof)
+    busy_share = (None if busy_s is None
+                  else busy_s / (PROFILE_STEPS * decode_ms / 1e3))
+    gen_s = None
+    if cfg.family != "vlm":
+        # generate pads S + steps + 8 text positions, short of a VLM's
+        # patch positions (the reference's generate does the same)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = generate(model, batch, steps + 1)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        require(torch.equal(got, ids), f"{arch}: generate's ids differ "
+                f"from prefill + {steps} serve steps")
+
+    # prefill/decode consistency, f32 compute, on the card
+    cfg32 = cfg.replace(compute_dtype=torch.float32,
+                        capacity_factor=max(cfg.capacity_factor, 8.0))
+    m32 = _on(model, cfg32)
+    chk = _model_batch(cfg, 2, CHECK_SEQ + 1, card, gen)
+    short = dict(chk, tokens=chk["tokens"][:, :-1])
+    chk_pad = positions - S + CHECK_SEQ + 1
+    _, st = m32.prefill(short, pad_to=chk_pad)
+    got, _ = m32.decode_step(st, chk["tokens"][:, -1])
+    want, _ = m32.prefill(chk)
+    cons = float((got - want).abs().max())
+    require(bool(torch.allclose(got, want, atol=CONSISTENCY_TOL,
+                                rtol=CONSISTENCY_TOL)),
+            f"{arch}: decode after prefill differs from a longer prefill "
+            f"by {cons}")
+
+    # the card against the CPU, f32 compute, CHECK_LAYERS layers (the
+    # hybrid's smallest depth is one super-block)
+    layers = (None if cfg.family == "hybrid"
+              else min(CHECK_LAYERS, cfg.num_layers))
+    cfg_chk = cfg.replace(compute_dtype=torch.float32,
+                          num_layers=layers or cfg.num_layers)
+    m_card = _on(model, cfg_chk, layers=layers)
+    m_cpu = _on(model, cfg_chk, device="cpu", layers=layers)
+    lg_card, st_card = m_card.prefill(short, pad_to=chk_pad)
+    lg_cpu, st_cpu = m_cpu.prefill({k: v.cpu() for k, v in short.items()},
+                                   pad_to=chk_pad)
+    nxt = chk["tokens"][:, -1]
+    dg_card, _ = m_card.decode_step(st_card, nxt)
+    dg_cpu, _ = m_cpu.decode_step(st_cpu, nxt.cpu())
+    pairs = ((lg_card.cpu(), lg_cpu), (dg_card.cpu(), dg_cpu))
+    errs = [float((a - b).abs().max()) for a, b in pairs]
+    require(all(torch.allclose(a, b, atol=CARD_CPU_TOL, rtol=CARD_CPU_TOL)
+                for a, b in pairs),
+            f"{arch}: card and CPU logits differ by {errs}")
+
+    cuts = (f"{cfg.num_layers} of {full.num_layers} layers" if cut
+            else "uncut")
+    tok_s = B * positions / prefill_s
+    via = (f"generate's ids equal ({gen_s:.3f} s for prefill and {steps} "
+           f"steps)" if gen_s is not None else
+           "generate not run: its padding misses the patch positions")
+    busy = ("the profiler recorded no device time" if busy_s is None else
+            f"device busy {100 * busy_share:.1f}% of a step: device time of "
+            f"{PROFILE_STEPS} profiled steps over {PROFILE_STEPS} unprofiled "
+            f"steps' wall time, {kernels / PROFILE_STEPS:.0f} kernels a "
+            f"step")
+    log(f"[models] {full.name} ({cfg.family}, {cuts}, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab_size}, f32 weights, bf16 "
+        f"compute): prefill {B} x {positions} positions in {prefill_s:.4f} "
+        f"s (median of {PREFILL_RUNS}, {tok_s:.0f} tokens/s), {steps} greedy decode steps at "
+        f"{decode_ms:.2f} ms a step ({busy}), max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB: {params / 2**30:.2f} GiB of weights, "
+        f"{(peak - before - params) / 2**30:.2f} GiB of serving, "
+        f"{before / 2**30:.2f} GiB held before the model ({smi}); {via}")
+    log(f"[models] {full.name}: finite logits; f32 prefill({CHECK_SEQ}) + "
+        f"decode(1) vs prefill({CHECK_SEQ + 1}) max |d| {cons:.3g} (tol "
+        f"{CONSISTENCY_TOL}); card vs CPU at {cfg_chk.num_layers} layers, "
+        f"f32, prefill max |d| {errs[0]:.3g}, decode max |d| {errs[1]:.3g} "
+        f"(tol {CARD_CPU_TOL}) ({smi})")
+    return {"arch": arch, "name": full.name, "family": cfg.family,
+            "cut": cut or None, "batch": B, "positions": positions,
+            "decode_steps": steps, "prefill_s": prefill_s,
+            "prefill_runs_s": prefill_runs,
+            "prefill_tokens_per_s": tok_s, "decode_ms_per_step": decode_ms,
+            "generate_s": gen_s, "peak_bytes": peak, "weight_bytes": params,
+            "bytes_before_model": before,
+            "device_busy_share": busy_share,
+            "kernels_per_step": (None if kernels is None
+                                 else kernels / PROFILE_STEPS),
+            "consistency_max_abs": cons, "card_cpu_max_abs": errs,
+            "card_cpu_layers": cfg_chk.num_layers, "card": smi}
 
 
 # --------------------------------------------------------- unit blockers
@@ -2325,12 +2637,16 @@ def main():
     serve_launches, served_waves, wide_args, serve = phase_serve(models)
     serve_kernel = phase_serve_kernel(served_waves, wide_args)
     scripts = phase_scripts(models)
-    corpus = phase_corpus()
+    corpus, corpus_trace = phase_corpus()
+    trace_report = phase_trace_report(corpus_trace, corpus, smi)
+    del corpus_trace
     errs = phase_blockers()
     blocker_launches, profiles = phase_hardware()
     blocker_times = phase_blocker_timing()
     ops_launches, ops_errs, ops_inputs, ssd_shares = phase_ops()
     ops_times = phase_ops_timing(ops_inputs)
+    del ops_inputs
+    model_serving = phase_models(smi)
     big = timing["largest"]
     report = {"kernels": [{
         "name": "wave_dispatch", "route": "cuda",
@@ -2405,6 +2721,8 @@ def main():
         f"served, {len(corpus['port_bound_launches_BCS'])} corpus "
         f"launches, (B, C, S) each) written to {mix}")
     report["scripts"] = scripts
+    report["trace_report"] = trace_report
+    report["models"] = model_serving
     print(smi, flush=True)
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -30,8 +30,13 @@ same artifact::
     PYTHONPATH=src python scripts/analyze_torch.py --corpus-report \\
         experiments/corpus_accuracy.json
 
-The port of scripts/analyze.py without its --trace-report mode: it reads
-trace files through obs/export.py, which the port does not have yet.
+With --trace-report, the argument is a trace file written by
+repro_torch.obs.export (Chrome trace-event JSON or JSONL) and the output is
+the per-wave bottleneck report of repro_torch.analysis.wave_report, what
+scripts/analyze.py --trace-report prints for the same file::
+
+    PYTHONPATH=src python scripts/analyze_torch.py --trace-report \\
+        run.trace.json --top-waves 10
 """
 from __future__ import annotations
 
@@ -73,7 +78,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("block", nargs="?",
                     help="block file in the textual format, or - for stdin "
-                         "(not needed with --corpus-report)")
+                         "(not needed with --trace-report)")
     ap.add_argument("--models", default=str(REPO / "experiments" / "models"),
                     help="model artifact directory (local mode)")
     ap.add_argument("--connect", metavar="HOST:PORT",
@@ -82,6 +87,12 @@ def main(argv=None) -> int:
                     help="restrict to these uarches (repeatable)")
     ap.add_argument("--json", action="store_true", dest="as_json",
                     help="print raw JSON responses")
+    ap.add_argument("--trace-report", metavar="TRACE",
+                    help="summarize a repro_torch.obs trace file (Chrome "
+                         "JSON or JSONL) instead of predicting a block")
+    ap.add_argument("--top-waves", type=int, default=5, metavar="K",
+                    help="slowest waves to list in --trace-report "
+                         "(default 5)")
     ap.add_argument("--corpus-report", metavar="ACCURACY",
                     help="render a corpus accuracy artifact "
                          "(corpus_accuracy.json) instead of predicting "
@@ -96,9 +107,18 @@ def main(argv=None) -> int:
         else:
             print(format_report(rep))
         return 0
+    if args.trace_report:
+        from repro_torch.analysis.wave_report import (  # noqa: PLC0415
+            format_wave_report, report_from_file)
+        rep = report_from_file(args.trace_report, top=args.top_waves)
+        if args.as_json:
+            print(json.dumps(rep, indent=1))
+        else:
+            print(format_wave_report(rep))
+        return 0
     if not args.block:
-        ap.error("a block file is required unless --corpus-report is "
-                 "given")
+        ap.error("a block file is required unless --trace-report or "
+                 "--corpus-report is given")
 
     text = (sys.stdin.read() if args.block == "-"
             else Path(args.block).read_text())

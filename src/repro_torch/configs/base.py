@@ -5,8 +5,10 @@ default and derived property is the reference's, with the dtypes as torch
 dtypes.  Every architecture has a module ``repro_torch.configs.<id>``
 exporting ``CONFIG`` (the full-scale config) and ``SMOKE_CONFIG`` (a reduced
 same-family config).  The op layer (``kernels/ops.py``) is driven at these
-widths; the fields that steer a model stack (``attn_impl``, ``ce_impl``,
-``remat``, ...) wait for the model slice of the port.
+widths, and the models of ``repro_torch.models`` are built from them.  As
+in the reference, ``attn_impl`` is read nowhere; the training and mesh
+fields (``ce_impl``, ``remat``, ``train_microbatches``, ``embed_sharding``,
+``bf16_all_reduce``) wait for those slices of the port.
 """
 from __future__ import annotations
 

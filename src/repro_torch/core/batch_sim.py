@@ -925,10 +925,13 @@ class _DeviceExec:
         self.kernel_ns: dict = {}      # "device:<key>" -> total kernel ns
         self.straggler = StragglerDetector()
 
-    def _observe(self, dur_ns: int) -> None:
-        """Traced-kernel callback: accumulate the device's kernel time and
-        feed the straggler EWMA with it."""
+    def _observe(self, t0_ns: int, dur_ns: int, **attrs) -> None:
+        """Traced-kernel callback: record the kernel's span on the device's
+        trace track (at the launch's host time, lasting the kernel's
+        interval), accumulate the device's kernel time and feed the
+        straggler EWMA with it."""
         label = f"device:{self.key}"
+        obs.emit_span("wave.kernel", t0_ns, dur_ns, track=label, **attrs)
         with self._lock:
             self.kernel_ns[label] = self.kernel_ns.get(label, 0) + dur_ns
             self.straggler.observe(label, dur_ns / 1e9)
@@ -1022,17 +1025,17 @@ class _DeviceExec:
         timer = None
         with obs.wait_lock(self.dispatch_lock, "wave.dispatch_lock_wait"):
             args = self.upload(pk)
-            with obs.span("wave.kernel", track=f"device:{self.key}",
-                          lanes=pk.E, steps=S):
-                if obs.enabled():
-                    # a traced wave times its kernel: CUDA events on the
-                    # launching stream (the launch is asynchronous, so a
-                    # host interval would see only the launch), read after
-                    # the copy back; on the CPU the call is the kernel
-                    timer = _KernelTimer(self.device, self._observe)
-                done, counts = run(*args)
-                if timer is not None:
-                    timer.stop()
+            if obs.enabled():
+                # a traced wave times its kernel: CUDA events on the
+                # launching stream (the launch is asynchronous, so a host
+                # interval would see only the launch), read after the copy
+                # back, which is also when its device-track span is
+                # recorded; on the CPU the call is the kernel
+                timer = _KernelTimer(self.device, self._observe,
+                                     lanes=pk.E, steps=S)
+            done, counts = run(*args)
+            if timer is not None:
+                timer.stop()
         if record is not None:
             record.append(args)
         self.buckets.add((S, E, R))
@@ -1044,22 +1047,23 @@ class _DeviceExec:
 class _KernelTimer:
     """The kernel interval of one traced launch: CUDA events recorded
     around the launch on the launching stream, or a host ``perf_counter``
-    interval for a CPU call.  :meth:`report` hands the interval in ns to
+    interval for a CPU call.  :meth:`report` hands the launch's host time
+    and the interval in ns (and the span attributes ``attrs``) to
     ``observe`` once the outputs are on the host, so only traced waves
     wait on an event and no untraced wave gains a synchronisation."""
-    __slots__ = ("observe", "stream", "events", "t0", "ns")
+    __slots__ = ("observe", "attrs", "stream", "events", "t0", "ns")
 
-    def __init__(self, device, observe):
+    def __init__(self, device, observe, **attrs):
         self.observe = observe
+        self.attrs = attrs
         self.stream = self.events = None
-        self.t0 = self.ns = 0
+        self.ns = 0
+        self.t0 = time.perf_counter_ns()
         if device.type == "cuda":
             self.stream = torch.cuda.current_stream(device)
             self.events = (torch.cuda.Event(enable_timing=True),
                            torch.cuda.Event(enable_timing=True))
             self.events[0].record(self.stream)
-        else:
-            self.t0 = time.perf_counter_ns()
 
     def stop(self) -> None:
         if self.events is None:
@@ -1072,7 +1076,7 @@ class _KernelTimer:
             self.events[1].synchronize()
             self.ns = round(self.events[0].elapsed_time(self.events[1])
                             * 1e6)
-        self.observe(max(1, self.ns))
+        self.observe(self.t0, max(1, self.ns), **self.attrs)
 
 
 class _Launched:

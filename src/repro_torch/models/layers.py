@@ -1,0 +1,429 @@
+"""Core neural-net layers in plain PyTorch: norms, RoPE/M-RoPE, GQA
+attention (prefill with chunked queries + single-step decode), MLPs.
+
+The port of the reference package's ``repro.models.layers``, op for op and
+in the reference's order, so that bf16 rounding follows the same steps:
+
+  * params are nested dicts of tensors (a :class:`ParamTree` module, or a
+    plain dict of one layer's slices), weights in the reference's
+    ``(in, out)`` layout, applied as ``x @ w``;
+  * every function takes ``axes: MeshAxes`` and applies activation
+    constraints through :func:`repro_torch.models.sharding.sc` (the
+    identity: the mesh path waits for the mesh slice);
+  * compute happens in ``cfg.compute_dtype`` (bf16), softmax/norm
+    statistics in fp32;
+  * ``jax.lax.scan`` over stacked layer params is :func:`xscan`, a Python
+    loop over the leading dimension;
+  * the init helpers draw from an explicit ``torch.Generator`` (different
+    numbers from ``jax.random``: compare the two packages on carried
+    weights, ``models/carry.py``, never on two inits).
+
+The attention here is the reference's plain-``jnp`` function, which its
+models call (``cfg.attn_impl`` is read nowhere), not the flash-attention
+kernel of ``kernels/ops.py``; the cross-attention blocks of the
+encoder-decoder family wait for its slice.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.sharding import MeshAxes, sc
+
+
+# ---------------------------------------------------------------------------
+# parameter trees and the layer loop
+# ---------------------------------------------------------------------------
+
+
+class ParamTree(nn.Module):
+    """A nested dict of tensors as a module: each leaf an ``nn.Parameter``
+    named after its key, each inner dict a child ``ParamTree``, so
+    ``named_parameters()`` gives the reference tree's paths
+    (``layers.attn.wq``) and ``p["attn"]["wq"]`` reads like the
+    reference's dict.  Serving never differentiates, so the parameters
+    are made without gradients (``requires_grad_()`` turns them on)."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                self.add_module(key, ParamTree(val))
+            else:
+                self.register_parameter(
+                    key, nn.Parameter(val, requires_grad=False))
+
+    def __getitem__(self, key: str):
+        if key in self._parameters:
+            return self._parameters[key]
+        if key in self._modules:
+            return self._modules[key]
+        raise KeyError(key)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or key in self._modules
+
+    def keys(self) -> list:
+        return [*self._parameters, *self._modules]
+
+    def get(self, key: str, default=None):
+        return self[key] if key in self else default
+
+
+def tree_index(xs, i: int):
+    """Slice ``i`` of every leaf of a tree (dict, ParamTree, tuple, list)."""
+    if xs is None:
+        return None
+    if isinstance(xs, (dict, ParamTree)):
+        return {k: tree_index(xs[k], i) for k in xs.keys()}
+    if isinstance(xs, (tuple, list)):
+        return type(xs)(tree_index(x, i) for x in xs)
+    return xs[i]
+
+
+def _leading(xs) -> int:
+    if isinstance(xs, (dict, ParamTree)):
+        return _leading(xs[next(iter(xs.keys()))])
+    if isinstance(xs, (tuple, list)):
+        return _leading(next(x for x in xs if x is not None))
+    return xs.shape[0]
+
+
+def _stack(ys: list):
+    """The per-step outputs stacked leaf by leaf (``lax.scan``'s ys)."""
+    first = ys[0]
+    if first is None:
+        return None
+    if isinstance(first, dict):
+        return {k: _stack([y[k] for y in ys]) for k in first}
+    if isinstance(first, (tuple, list)):
+        return type(first)(_stack([y[j] for y in ys])
+                           for j in range(len(first)))
+    return torch.stack(ys)
+
+
+def xscan(cfg: ModelConfig, body, carry, xs):
+    """``lax.scan(body, carry, xs)`` as a Python loop over the leading
+    dimension of ``xs``; returns ``(carry, stacked ys)``.  Always unrolled,
+    so ``cfg.unroll_scans`` has nothing to change."""
+    ys = []
+    for i in range(_leading(xs)):
+        carry, y = body(carry, tree_index(xs, i))
+        ys.append(y)
+    return carry, (_stack(ys) if ys else None)
+
+
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
+
+
+def _device(gen):
+    """The generator's device; None (the ambient device, e.g. ``meta``
+    while a model is only being shaped) without a generator."""
+    return gen.device if gen is not None else None
+
+
+def normal(gen, shape):
+    return torch.randn(shape, generator=gen, device=_device(gen))
+
+
+def full(gen, shape, value: float, dtype):
+    return torch.full(shape, value, dtype=dtype, device=_device(gen))
+
+
+def dense_init(gen, shape, in_axis: int = -2, dtype=torch.float32):
+    fan_in = shape[in_axis]
+    return (normal(gen, shape) * (fan_in**-0.5)).to(dtype)
+
+
+def embed_init(gen, shape, dtype=torch.float32):
+    return (normal(gen, shape) * 0.02).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x, w, eps: float = 1e-5):
+    """RMSNorm with fp32 *statistics* but a bf16 data path: only the
+    (B, S, 1) statistic is computed in fp32, and ``x * inv * w`` runs in
+    ``x``'s dtype, left to right, as in the reference."""
+    dt = x.dtype
+    x32 = x.to(torch.float32)
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps).to(dt)  # (B, S, 1) statistic only
+    return x * inv * w.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings (RoPE + M-RoPE)
+# ---------------------------------------------------------------------------
+
+
+def rope_angles(positions, head_dim: int, theta: float, sections=()):
+    """Rotation angles, shape (..., S, head_dim//2).
+
+    ``positions``: (B, S) int32 for plain RoPE, or (3, B, S) for M-RoPE where
+    the three streams are (temporal, height, width) position ids. ``sections``
+    partitions head_dim//2 among the three streams (Qwen2-VL).
+    """
+    half = head_dim // 2
+    dev = positions.device
+    inv_freq = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                             device=dev) / half))
+    if sections:
+        if sum(sections) != half or positions.dim() != 3:
+            raise ValueError(f"M-RoPE sections {tuple(sections)} must sum "
+                             f"to {half} over (3, B, S) positions, got "
+                             f"{tuple(positions.shape)}")
+        # (half,) -> the stream each frequency reads (filled on the
+        # device: no host-to-device copy in a decode step)
+        sec_id = torch.cat([torch.full((n,), i, device=dev)
+                            for i, n in enumerate(sections)])
+        pos = positions.to(torch.float32)[sec_id]  # (half, B, S)
+        return torch.movedim(pos, 0, -1) * inv_freq  # (B, S, half)
+    return positions.to(torch.float32)[..., None] * inv_freq
+
+
+def apply_rope(x, angles):
+    """x: (B, S, H, Dh); angles: (B, S, Dh//2). Rotate-half convention."""
+    half = x.shape[-1] // 2
+    cos = torch.cos(angles)[:, :, None, :].to(x.dtype)
+    sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+
+def attn_params(gen, cfg: ModelConfig, layers: int | None = None, dtype=None):
+    """Stacked attention params; ``layers=None`` -> unstacked (shared block)."""
+    d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    pre = () if layers is None else (layers,)
+    dtype = dtype or cfg.param_dtype
+    p = {
+        "wq": dense_init(gen, (*pre, d, qd), dtype=dtype),
+        "wk": dense_init(gen, (*pre, d, kvd), dtype=dtype),
+        "wv": dense_init(gen, (*pre, d, kvd), dtype=dtype),
+        "wo": dense_init(gen, (*pre, qd, d), dtype=dtype),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = full(gen, (*pre, cfg.head_dim), 1.0, dtype)
+        p["k_norm"] = full(gen, (*pre, cfg.head_dim), 1.0, dtype)
+    return p
+
+
+def project_qkv(x, p, cfg: ModelConfig, axes: MeshAxes, angles, kv_x=None):
+    """Project to q/k/v heads, apply qk-norm and RoPE.
+
+    ``kv_x``: source for k/v (cross-attention; no RoPE applied then);
+    defaults to ``x``. Returns q (B,Sq,Hq,Dh), k,v (B,Skv,Hkv,Dh).
+    """
+    cd = cfg.compute_dtype
+    cross = kv_x is not None
+    kv_x = x if kv_x is None else kv_x
+    B, Sq, _ = x.shape
+    Skv = kv_x.shape[1]
+    q = (x @ p["wq"].to(cd)).reshape(B, Sq, cfg.num_heads, cfg.head_dim)
+    k = (kv_x @ p["wk"].to(cd)).reshape(B, Skv, cfg.num_kv_heads,
+                                        cfg.head_dim)
+    v = (kv_x @ p["wv"].to(cd)).reshape(B, Skv, cfg.num_kv_heads,
+                                        cfg.head_dim)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if angles is not None and not cross:
+        q = apply_rope(q, angles)
+        k = apply_rope(k, angles)
+    q = sc(q, axes, "batch", None, "model", None)
+    k = sc(k, axes, "batch", None, None, None)
+    v = sc(v, axes, "batch", None, None, None)
+    return q, k, v
+
+
+def _repeat_kv(k, num_heads: int):
+    """(B,S,Hkv,Dh) -> (B,S,Hq,Dh) by repeating each kv head for its group."""
+    return torch.repeat_interleave(k, num_heads // k.shape[2], dim=2)
+
+
+def full_attention(q, k, v, cfg: ModelConfig, axes: MeshAxes, *, causal: bool,
+                   q_chunk: int | None = None):
+    """Chunked-query full attention (flash-style blocking in plain ops).
+
+    Looping over query chunks bounds peak score memory at
+    (B, H, q_chunk, Skv) instead of (B, H, Sq, Skv).  The softmax is taken
+    in fp32 over a ``-inf`` causal mask and cast back, as in the reference
+    (no ``F.scaled_dot_product_attention``: its numerics differ).
+    """
+    B, Sq, Hq, Dh = q.shape
+    Skv = k.shape[1]
+    k = _repeat_kv(k, Hq)
+    v = _repeat_kv(v, Hq)
+    k = sc(k, axes, "batch", None, "model", None)
+    v = sc(v, axes, "batch", None, "model", None)
+    scale = Dh**-0.5
+    qc = min(q_chunk or cfg.attn_q_chunk, Sq)
+    n_chunks = Sq // qc
+    k_idx = torch.arange(Skv, device=q.device)
+
+    def one_chunk(qb, q0: int):
+        s = torch.einsum("bqhd,bkhd->bhqk", qb, k) * scale
+        s = sc(s, axes, "batch", "model", None, None)
+        if causal:
+            q_idx = q0 + torch.arange(qc, device=q.device)
+            mask = q_idx[:, None] >= k_idx[None, :]
+            s = s.masked_fill(~mask[None, None], float("-inf"))
+        a = torch.softmax(s.to(torch.float32), dim=-1).to(qb.dtype)
+        o = torch.einsum("bhqk,bkhd->bqhd", a, v)
+        return sc(o, axes, "batch", None, "model", None)
+
+    if n_chunks <= 1:
+        out = one_chunk(q, 0)
+    else:
+        qr = q.reshape(B, n_chunks, qc, Hq, Dh)
+        out = torch.cat([one_chunk(qr[:, c], c * qc)
+                         for c in range(n_chunks)], dim=1)
+    return out.reshape(B, Sq, Hq * Dh)
+
+
+def decode_attention(q, k_cache, v_cache, pos, cfg: ModelConfig,
+                     axes: MeshAxes):
+    """Single-token attention against a KV cache.
+
+    q: (B, 1, Hq, Dh); caches: (B, Smax, Hkv, Dh); ``pos``: 0-d int tensor
+    (or int) — number of valid cache entries (positions >= pos are masked
+    out).  The grouped ``(B, Hkv, group, Dh)`` form avoids materializing a
+    repeated cache.
+    """
+    B, _, Hq, Dh = q.shape
+    Smax, Hkv = k_cache.shape[1], k_cache.shape[2]
+    if axes.kv_partition == "seq":
+        cache_spec = ("batch", "model", None, None)
+    else:
+        cache_spec = ("batch", None, "model", None)
+    k_cache = sc(k_cache, axes, *cache_spec)
+    v_cache = sc(v_cache, axes, *cache_spec)
+    group = Hq // Hkv
+    qg = q.reshape(B, Hkv, group, Dh)
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache) * (Dh**-0.5)
+    valid = (torch.arange(Smax, device=q.device) < pos)[None, None, None, :]
+    s = s.to(torch.float32).masked_fill(~valid, float("-inf"))
+    if axes.kv_partition == "seq":
+        s = sc(s, axes, "batch", None, None, "model")
+    a = torch.softmax(s, dim=-1).to(q.dtype)
+    o = torch.einsum("bhgk,bkhd->bhgd", a, v_cache)
+    return o.reshape(B, 1, Hq * Dh)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+
+def mlp_params(gen, cfg: ModelConfig, layers: int | None = None, dtype=None):
+    d, f = cfg.d_model, cfg.d_ff
+    pre = () if layers is None else (layers,)
+    dtype = dtype or cfg.param_dtype
+    if cfg.mlp_kind == "swiglu":
+        return {
+            "w_gate": dense_init(gen, (*pre, d, f), dtype=dtype),
+            "w_up": dense_init(gen, (*pre, d, f), dtype=dtype),
+            "w_down": dense_init(gen, (*pre, f, d), dtype=dtype),
+        }
+    return {
+        "w_up": dense_init(gen, (*pre, d, f), dtype=dtype),
+        "w_down": dense_init(gen, (*pre, f, d), dtype=dtype),
+    }
+
+
+def _ar_boundary(x, cfg: ModelConfig):
+    """The reference's optimization barrier after TP matmuls (keeps the
+    model-axis all-reduce in bf16): a value identity, and there is no
+    all-reduce without the mesh path."""
+    return x
+
+
+def _tp_out(x, name: str):
+    """The reference's remat tag on the TP-psum outputs: a value
+    identity."""
+    return x
+
+
+def mlp_block(x, p, cfg: ModelConfig, axes: MeshAxes):
+    cd = cfg.compute_dtype
+    if cfg.mlp_kind == "swiglu":
+        g = x @ p["w_gate"].to(cd)
+        u = x @ p["w_up"].to(cd)
+        h = F.silu(g) * u
+    else:  # jax.nn.gelu defaults to the tanh approximation
+        h = F.gelu(x @ p["w_up"].to(cd), approximate="tanh")
+    h = sc(h, axes, "batch", None, "model")
+    out = _tp_out(_ar_boundary(h @ p["w_down"].to(cd), cfg), "mlp_out")
+    return sc(out, axes, "batch", None, None)
+
+
+# ---------------------------------------------------------------------------
+# transformer block (attention + MLP, pre-norm)
+# ---------------------------------------------------------------------------
+
+
+def block_params(gen, cfg: ModelConfig, layers: int | None = None):
+    pre = () if layers is None else (layers,)
+    return {
+        "attn": attn_params(gen, cfg, layers),
+        "mlp": mlp_params(gen, cfg, layers),
+        "ln1": full(gen, (*pre, cfg.d_model), 1.0, cfg.param_dtype),
+        "ln2": full(gen, (*pre, cfg.d_model), 1.0, cfg.param_dtype),
+    }
+
+
+def transformer_block(x, p, cfg: ModelConfig, axes: MeshAxes, angles, *,
+                      causal: bool = True):
+    """Pre-norm self-attention + MLP residual block (prefill)."""
+    cd = cfg.compute_dtype
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = project_qkv(h, p["attn"], cfg, axes, angles)
+    o = full_attention(q, k, v, cfg, axes, causal=causal)
+    x = x + _tp_out(_ar_boundary(o @ p["attn"]["wo"].to(cd), cfg),
+                    "attn_out")
+    x = sc(x, axes, "batch", None, None)
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    x = x + mlp_block(h, p["mlp"], cfg, axes)
+    return sc(x, axes, "batch", None, None)
+
+
+def cache_write(cache, new, pos):
+    """``dynamic_update_slice(cache, new, (0, pos, 0, 0))`` in place: writes
+    ``new`` (B, 1, Hkv, Dh) at sequence position ``pos`` (a 0-d tensor or
+    int, within the cache) of the (B, Smax, Hkv, Dh) ``cache`` and returns
+    it.  The caller owns ``cache``: a decode step passes its layer's view
+    of the one copy of the stacked cache that the step makes."""
+    idx = torch.as_tensor(pos, device=cache.device).reshape(1).long()
+    return cache.index_copy_(1, idx, new.to(cache.dtype))
+
+
+def transformer_block_decode(x, p, cfg: ModelConfig, axes: MeshAxes, angles,
+                             cache, pos):
+    """Single-token decode block. ``cache``: {"k","v"} (B,Smax,Hkv,Dh).
+
+    Writes this step's k/v at position ``pos`` into ``cache`` in place
+    (:func:`cache_write`), then attends to positions ``< pos+1``. Returns
+    (x, cache).
+    """
+    cd = cfg.compute_dtype
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = project_qkv(h, p["attn"], cfg, axes, angles)
+    ck = cache_write(cache["k"], k, pos)
+    cv = cache_write(cache["v"], v, pos)
+    o = decode_attention(q, ck, cv, pos + 1, cfg, axes)
+    x = x + (o @ p["attn"]["wo"].to(cd))
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    x = x + mlp_block(h, p["mlp"], cfg, axes)
+    return x, {"k": ck, "v": cv}

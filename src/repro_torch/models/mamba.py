@@ -1,20 +1,25 @@
-"""Mamba2 SSD (state-space duality) in plain PyTorch [arXiv:2405.21060].
+"""Mamba2 (SSD — state-space duality) blocks in plain PyTorch
+[arXiv:2405.21060].
 
-The port of the chunked SSD algorithm of the reference's
-``repro/models/mamba.py`` (matrix-transformer form within chunks, linear
-recurrence across chunks) and of its O(1)-per-token recurrent step:
-``segsum``, ``ssd_chunked`` and ``ssd_step``, op for op, with the
-inter-chunk ``jax.lax.scan`` as a Python loop over chunks.
-``kernels/ref.py`` builds its SSD oracle on ``ssd_chunked``, as the
-reference's does.
-
-The Mamba2 block itself (projections, causal conv, gating, params and
-decode cache) waits for the model slice of the port.
+The port of the reference's ``repro/models/mamba.py``, op for op: the
+chunked SSD algorithm (``segsum``, ``ssd_chunked``: matrix-transformer form
+within chunks, linear recurrence across chunks, the inter-chunk
+``jax.lax.scan`` as a Python loop over chunks), the O(1)-per-token
+recurrent step (``ssd_step``), and the Mamba2 block built on them: params,
+the depthwise causal conv, the split projections, the prefill block that
+hands its final SSM and conv state to decode, the decode step and the
+decode state's shapes.  ``kernels/ref.py`` builds its SSD oracle on
+``ssd_chunked``, as the reference's does; the models call the plain scan,
+as the reference's do, not the SSD kernel of ``kernels/ops.py``.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import dense_init, full, normal, rms_norm
+from repro_torch.models.sharding import MeshAxes, sc
 
 
 def segsum(x):
@@ -104,3 +109,135 @@ def ssd_step(state, x_t, dt_t, A, B_t, C_t):
     new_state = state * dA[..., None, None] + upd
     y = torch.einsum("bhpn,bhn->bhp", new_state, Ch)
     return y, new_state
+
+
+# ---------------------------------------------------------------------------
+# full Mamba2 block
+# ---------------------------------------------------------------------------
+
+
+def mamba_params(gen, cfg: ModelConfig, layers: int | None = None):
+    d, di = cfg.d_model, cfg.d_inner
+    g, n, h, w = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_conv
+    pre = () if layers is None else (layers,)
+    dt = cfg.param_dtype
+    return {
+        "wz": dense_init(gen, (*pre, d, di), dtype=dt),
+        "wx": dense_init(gen, (*pre, d, di), dtype=dt),
+        "wB": dense_init(gen, (*pre, d, g * n), dtype=dt),
+        "wC": dense_init(gen, (*pre, d, g * n), dtype=dt),
+        "wdt": dense_init(gen, (*pre, d, h), dtype=dt),
+        "conv": (normal(gen, (*pre, w, di + 2 * g * n)) * 0.1).to(dt),
+        "A_log": full(gen, (*pre, h), 0.0, dt),  # A = -exp(A_log) = -1
+        "D": full(gen, (*pre, h), 1.0, dt),
+        "dt_bias": full(gen, (*pre, h), -2.0, dt),  # softplus(-2) ~ 0.12
+        "norm": full(gen, (*pre, di), 1.0, dt),
+        "out": dense_init(gen, (*pre, di, d), dtype=dt),
+        "ln": full(gen, (*pre, d), 1.0, dt),
+    }
+
+
+def causal_conv1d(x, kernel):
+    """Depthwise causal conv. x: (B, S, ch); kernel: (w, ch).  The taps
+    accumulate in the reference's order, from the oldest."""
+    w = kernel.shape[0]
+    pad = F.pad(x, (0, 0, w - 1, 0))
+    S = x.shape[1]
+    out = torch.zeros_like(x)
+    for i in range(w):
+        out = out + pad[:, i:i + S, :] * kernel[i]
+    return out
+
+
+def _project(x, p, cfg: ModelConfig, axes: MeshAxes):
+    cd = cfg.compute_dtype
+    z = x @ p["wz"].to(cd)
+    xin = x @ p["wx"].to(cd)
+    Bp = x @ p["wB"].to(cd)
+    Cp = x @ p["wC"].to(cd)
+    dt_raw = x @ p["wdt"].to(cd)
+    return z, xin, Bp, Cp, dt_raw
+
+
+def mamba_block(x, p, cfg: ModelConfig, axes: MeshAxes):
+    """Prefill Mamba2 block: (B, S, D) -> ((B, S, D), final_state).
+
+    final_state: (ssm_state (B,h,p,n), conv_state (B, w-1, conv_ch), None
+    when S < w) so that prefill can hand off to the recurrent decode path.
+    """
+    B_, S, _ = x.shape
+    cd = cfg.compute_dtype
+    f32 = torch.float32
+    g, n, hh, pp, w = (cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads,
+                       cfg.ssm_headdim, cfg.ssm_conv)
+    res = x
+    x = rms_norm(x, p["ln"], cfg.norm_eps)
+    z, xin, Bp, Cp, dt_raw = _project(x, p, cfg, axes)
+    xbc = torch.cat([xin, Bp, Cp], dim=-1)
+    xbc = sc(xbc, axes, "batch", None, "model")
+    conv_state = xbc[:, S - (w - 1):, :] if S >= w else None
+    xbc = F.silu(causal_conv1d(xbc, p["conv"].to(cd)))
+    di = cfg.d_inner
+    xin = xbc[..., :di].reshape(B_, S, hh, pp)
+    Bm = xbc[..., di:di + g * n].reshape(B_, S, g, n)
+    Cm = xbc[..., di + g * n:].reshape(B_, S, g, n)
+    dt = F.softplus(dt_raw.to(f32) + p["dt_bias"].to(f32))
+    A = -torch.exp(p["A_log"].to(f32))
+    xin = sc(xin, axes, "batch", None, "model", None)
+    # ssd_dtype="bf16": x/B/C operands in bf16 through the intra-chunk
+    # matrix work; decay/statistics stay fp32 inside ssd_chunked
+    sdt = f32 if cfg.ssd_dtype == "fp32" else cfg.compute_dtype
+    y, ssm_state = ssd_chunked(xin.to(sdt), dt, A, Bm.to(sdt), Cm.to(sdt),
+                               cfg.ssm_chunk)
+    y = y.to(f32) + (p["D"].to(f32)[:, None] * xin.to(f32))
+    y = y.to(cd).reshape(B_, S, di)
+    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
+    out = y @ p["out"].to(cd)
+    return (res + sc(out, axes, "batch", None, None),
+            (ssm_state.to(cd), conv_state))
+
+
+def mamba_block_decode(x, p, cfg: ModelConfig, axes: MeshAxes, state):
+    """Single-token Mamba2 step. x: (B, 1, D); state: (ssm, conv)."""
+    ssm_state, conv_state = state  # (B,h,p,n), (B, w-1, conv_ch)
+    B_ = x.shape[0]
+    cd = cfg.compute_dtype
+    f32 = torch.float32
+    g, n, hh, pp = (cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads,
+                    cfg.ssm_headdim)
+    res = x
+    x = rms_norm(x, p["ln"], cfg.norm_eps)
+    z, xin, Bp, Cp, dt_raw = _project(x[:, 0], p, cfg, axes)
+    xbc_t = torch.cat([xin, Bp, Cp], dim=-1)  # (B, conv_ch)
+    window = torch.cat([conv_state, xbc_t[:, None, :]], dim=1)  # (B,w,ch)
+    conv_out = torch.einsum("bwc,wc->bc", window, p["conv"].to(cd))
+    conv_out = F.silu(conv_out)
+    new_conv_state = window[:, 1:, :]
+    di = cfg.d_inner
+    x_t = conv_out[:, :di].reshape(B_, hh, pp)
+    B_t = conv_out[:, di:di + g * n].reshape(B_, g, n)
+    C_t = conv_out[:, di + g * n:].reshape(B_, g, n)
+    dt = F.softplus(dt_raw.to(f32) + p["dt_bias"].to(f32))
+    A = -torch.exp(p["A_log"].to(f32))
+    y, new_ssm = ssd_step(ssm_state.to(f32), x_t.to(f32), dt, A,
+                          B_t.to(f32), C_t.to(f32))
+    y = y + p["D"].to(f32)[:, None] * x_t.to(f32)
+    y = y.to(cd).reshape(B_, di)
+    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
+    out = (y @ p["out"].to(cd))[:, None, :]
+    return res + out, (new_ssm.to(cd), new_conv_state)
+
+
+def mamba_state_specs(cfg: ModelConfig, batch: int,
+                      stacked: int | None = None):
+    """Decode state of one (or ``stacked``) blocks as ``meta`` tensors (the
+    reference's ShapeDtypeStructs): (ssm, conv)."""
+    pre = () if stacked is None else (stacked,)
+    cd = cfg.compute_dtype
+    conv_ch = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+    return (
+        torch.empty((*pre, batch, cfg.ssm_heads, cfg.ssm_headdim,
+                     cfg.ssm_state), dtype=cd, device="meta"),
+        torch.empty((*pre, batch, cfg.ssm_conv - 1, conv_ch), dtype=cd,
+                    device="meta"),
+    )

@@ -1,0 +1,475 @@
+"""Model families assembled from layers/moe/mamba, all config-driven.
+
+The port of the reference package's ``repro.models.transformer``, serving
+half: the families dense (+vlm), moe, ssm (mamba2) and hybrid (zamba2).
+Every family is an ``nn.Module`` whose parameters are the reference's
+parameter tree (:class:`repro_torch.models.layers.ParamTree`: the stacked
+layer dimension is kept, ``layers.attn.wq`` is ``(L, d, q_dim)``), with the
+reference's interface less the params argument:
+
+    init(generator) -> self                       # draws every parameter
+    prefill(batch, pad_to=None) -> (last_logits, state)
+    decode_step(state, tokens) -> (logits, state)  # 1 token, O(cache)
+    decode_state_specs(batch, seq_len) -> meta tensors
+
+Layer stacks loop over the stacked params (:func:`layers.xscan`).  The
+decode state is a dict of tensors; ``pos`` is a 0-d int32 tensor on the
+model's device, so a decode step never waits on the host.  A decode step
+copies the stacked KV cache once and writes each layer's k/v row into that
+copy in place, so the state it was given stays valid; the reference's
+``cfg.decode_loop`` settings (``"scan"``, ``"fori"``) are accepted and
+both run this one loop.  Training (``loss``, ``chunked_ce_loss``, remat) and the
+encoder-decoder family wait for the training slice of the port.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
+from repro_torch.models import moe as MOE
+from repro_torch.models.sharding import SINGLE, MeshAxes, sc
+
+
+def _positions(cfg: ModelConfig, B: int, S: int, offset=0, device=None):
+    pos = torch.arange(S, dtype=torch.int32, device=device)[None, :] + offset
+    pos = pos.expand(B, S)
+    if cfg.mrope_sections:
+        # frontend stub: text-like ids on all three M-RoPE streams
+        return pos[None].expand(3, B, S)
+    return pos
+
+
+def _angles(cfg: ModelConfig, positions):
+    return L.rope_angles(positions, cfg.head_dim, cfg.rope_theta,
+                         cfg.mrope_sections)
+
+
+def flatten_tree(tree: dict, prefix: str = "") -> dict:
+    """A nested parameter dict as a flat ``{"layers.attn.wq": leaf}``
+    dict (the model's ``state_dict`` names)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flatten_tree(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+class BaseLM(L.ParamTree):
+    """The shared half of every family: the parameter tree (shaped on the
+    ``meta`` device until :meth:`init` draws it, or ``build_model`` /
+    ``models.carry`` place it), embedding, logits and KV-cache helpers."""
+
+    def __init__(self, cfg: ModelConfig, axes: MeshAxes | None = None,
+                 mesh=None):
+        with torch.device("meta"):
+            tree = self.init_tree(cfg, None)
+        super().__init__(tree)
+        self.cfg = cfg
+        self.axes = axes or SINGLE
+        self.mesh = mesh
+
+    @property
+    def device(self) -> torch.device:
+        return self["embed"].device
+
+    # ---- parameters ----
+    @staticmethod
+    def init_tree(cfg: ModelConfig, gen) -> dict:
+        """The reference's ``init``: the parameter tree drawn from ``gen``
+        (on its device; shapes only on the ambient device without one)."""
+        raise NotImplementedError
+
+    def init(self, generator: torch.Generator) -> "BaseLM":
+        """Draw every parameter from ``generator``, on its device."""
+        self.load_state_dict(flatten_tree(self.init_tree(self.cfg,
+                                                         generator)),
+                             strict=True, assign=True)
+        return self
+
+    @staticmethod
+    def _embed_tree(cfg: ModelConfig, gen) -> dict:
+        p = {"embed": L.embed_init(gen, (cfg.vocab_padded, cfg.d_model),
+                                   cfg.param_dtype),
+             "ln_f": L.full(gen, (cfg.d_model,), 1.0, cfg.param_dtype)}
+        if not cfg.tie_embeddings:
+            p["unembed"] = L.embed_init(gen, (cfg.vocab_padded, cfg.d_model),
+                                        cfg.param_dtype)
+        return p
+
+    # ---- embedding helpers ----
+    def _embed(self, tokens):
+        # the rows are cast after the gather: the same values as casting
+        # the whole table first, as the reference writes it
+        e = self["embed"][tokens].to(self.cfg.compute_dtype)
+        return sc(e, self.axes, "batch", None, None)
+
+    def _unembed_table(self):
+        return self.get("unembed", self["embed"])
+
+    def _logits(self, h):
+        """Last-position logits (B, V) in fp32."""
+        h = L.rms_norm(h, self["ln_f"], self.cfg.norm_eps)
+        logits = torch.einsum("bd,vd->bv", h.to(torch.float32),
+                              self._unembed_table().to(torch.float32))
+        return sc(logits, self.axes, "batch", "model")
+
+    def _pos(self, S: int):
+        return torch.tensor(S, dtype=torch.int32, device=self.device)
+
+    def _decode_angles(self, B: int, pos):
+        return _angles(self.cfg, _positions(self.cfg, B, 1, offset=pos,
+                                            device=self.device))
+
+    # interface stubs
+    def prefill(self, batch, pad_to: int | None = None):
+        raise NotImplementedError
+
+    def decode_step(self, state, tokens):
+        raise NotImplementedError
+
+    def decode_state_specs(self, batch: int, seq_len: int):
+        raise NotImplementedError
+
+    @staticmethod
+    def _pad_kv(kv, pad_to: int | None):
+        """Pad prefill KV caches along the sequence dim (dim 2 of the
+        stacked (L, B, S, Hkv, Dh) caches) to ``pad_to`` so subsequent
+        decode steps have write headroom."""
+        if pad_to is None:
+            return kv
+
+        def pad(a):
+            s = a.shape[2]
+            return (F.pad(a, [0, 0] * (a.dim() - 3) + [0, pad_to - s])
+                    if pad_to > s else a)
+        return {k: pad(v) for k, v in kv.items()}
+
+    def kv_cache_specs(self, stack: int, batch: int, seq_len: int):
+        cfg = self.cfg
+        shp = (stack, batch, seq_len, cfg.num_kv_heads, cfg.head_dim)
+        return {"k": torch.empty(shp, dtype=cfg.compute_dtype,
+                                 device="meta"),
+                "v": torch.empty(shp, dtype=cfg.compute_dtype,
+                                 device="meta")}
+
+    def _attn_layer_kv(self, x, lp, angles):
+        """One dense layer of the prefill trunk, keeping its k/v."""
+        cfg = self.cfg
+        hn = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        q, k, v = L.project_qkv(hn, lp["attn"], cfg, self.axes, angles)
+        o = L.full_attention(q, k, v, cfg, self.axes, causal=True)
+        x = x + (o @ lp["attn"]["wo"].to(cfg.compute_dtype))
+        return x, {"k": k.to(cfg.compute_dtype),
+                   "v": v.to(cfg.compute_dtype)}
+
+    def _decode_layers(self, body, h, xs, kv):
+        """The decode loop over a stack of layers and their KV cache.
+        ``body(x, xs_i, cache_i) -> (x, y)`` runs for each layer, with
+        ``cache_i`` layer i's {"k","v"} view of one copy of the stacked
+        cache, which it writes in place.  Returns (x, stacked ys, cache)."""
+        ck, cv = kv["k"].clone(), kv["v"].clone()
+        h, ys = L.xscan(
+            self.cfg, lambda x, inp: body(x, inp[0], {"k": inp[1],
+                                                      "v": inp[2]}),
+            h, (xs, ck, cv))
+        return h, ys, {"k": ck, "v": cv}
+
+
+# ---------------------------------------------------------------------------
+# dense decoder LM (also VLM backbone: patch embeddings prepended)
+# ---------------------------------------------------------------------------
+
+
+class DenseLM(BaseLM):
+    @staticmethod
+    def init_tree(cfg: ModelConfig, gen) -> dict:
+        p = BaseLM._embed_tree(cfg, gen)
+        p["layers"] = L.block_params(gen, cfg, cfg.num_layers)
+        return p
+
+    def _trunk(self, h, angles):
+        cfg = self.cfg
+
+        def body(x, lp):
+            x, kv = self._attn_layer_kv(x, lp, angles)
+            hn = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+            return x + L.mlp_block(hn, lp["mlp"], cfg, self.axes), kv
+
+        return L.xscan(cfg, body, h, self["layers"])
+
+    def _inputs_to_h(self, batch):
+        """Embed tokens; VLM prepends stubbed patch embeddings."""
+        cfg = self.cfg
+        h = self._embed(batch["tokens"])
+        if cfg.family == "vlm" and "patch_embeds" in batch:
+            pe = batch["patch_embeds"].to(cfg.compute_dtype)
+            h = torch.cat([sc(pe, self.axes, "batch", None, None), h], dim=1)
+        return h
+
+    def prefill(self, batch, pad_to: int | None = None):
+        cfg = self.cfg
+        h = self._inputs_to_h(batch)
+        B, S, _ = h.shape
+        angles = _angles(cfg, _positions(cfg, B, S, device=h.device))
+        h, kv = self._trunk(h, angles)
+        logits = self._logits(h[:, -1])
+        return logits, {"kv": self._pad_kv(kv, pad_to), "pos": self._pos(S)}
+
+    def decode_step(self, state, tokens):
+        cfg = self.cfg
+        h = self._embed(tokens[:, None])
+        pos = state["pos"]
+        Smax = state["kv"]["k"].shape[2]
+        write_pos = torch.clamp(pos, max=Smax - 1)
+        angles = self._decode_angles(h.shape[0], pos)
+
+        def body(x, lp, cache):
+            x, _ = L.transformer_block_decode(x, lp, cfg, self.axes, angles,
+                                              cache, write_pos)
+            return x, None
+
+        h, _, kv = self._decode_layers(body, h, self["layers"], state["kv"])
+        return self._logits(h[:, 0]), {"kv": kv, "pos": pos + 1}
+
+    def decode_state_specs(self, batch: int, seq_len: int):
+        return {"kv": self.kv_cache_specs(self.cfg.num_layers, batch,
+                                          seq_len),
+                "pos": torch.empty((), dtype=torch.int32, device="meta")}
+
+
+# ---------------------------------------------------------------------------
+# MoE decoder LM
+# ---------------------------------------------------------------------------
+
+
+class MoeLM(BaseLM):
+    @staticmethod
+    def init_tree(cfg: ModelConfig, gen) -> dict:
+        p = BaseLM._embed_tree(cfg, gen)
+        nl = cfg.num_layers
+        p["layers"] = {
+            "attn": L.attn_params(gen, cfg, nl),
+            "moe": MOE.moe_params(gen, cfg, nl),
+            "ln1": L.full(gen, (nl, cfg.d_model), 1.0, cfg.param_dtype),
+            "ln2": L.full(gen, (nl, cfg.d_model), 1.0, cfg.param_dtype),
+        }
+        return p
+
+    def _trunk(self, h, angles):
+        """Returns (h, mean aux (2,) [load_balance, router_z], kv)."""
+        cfg = self.cfg
+
+        def body(carry, lp):
+            x, aux = carry
+            x, kv = self._attn_layer_kv(x, lp, angles)
+            hn = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+            y, a = MOE.moe_ffn(hn, lp["moe"], cfg, self.axes, self.mesh)
+            return (x + y, aux + a), kv
+
+        aux0 = torch.zeros(2, device=h.device)
+        (h, aux), kv = L.xscan(cfg, body, (h, aux0), self["layers"])
+        return h, aux / cfg.num_layers, kv
+
+    def prefill(self, batch, pad_to: int | None = None):
+        cfg = self.cfg
+        h = self._embed(batch["tokens"])
+        B, S, _ = h.shape
+        angles = _angles(cfg, _positions(cfg, B, S, device=h.device))
+        h, _, kv = self._trunk(h, angles)
+        return (self._logits(h[:, -1]),
+                {"kv": self._pad_kv(kv, pad_to), "pos": self._pos(S)})
+
+    def decode_step(self, state, tokens):
+        cfg = self.cfg
+        h = self._embed(tokens[:, None])
+        pos = state["pos"]
+        Smax = state["kv"]["k"].shape[2]
+        write_pos = torch.clamp(pos, max=Smax - 1)
+        angles = self._decode_angles(h.shape[0], pos)
+
+        def body(x, lp, cache):
+            hn = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+            q, k, v = L.project_qkv(hn, lp["attn"], cfg, self.axes, angles)
+            ck = L.cache_write(cache["k"], k, write_pos)
+            cv = L.cache_write(cache["v"], v, write_pos)
+            o = L.decode_attention(q, ck, cv, write_pos + 1, cfg, self.axes)
+            x = x + (o @ lp["attn"]["wo"].to(cfg.compute_dtype))
+            hn = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+            y, _ = MOE.moe_ffn(hn, lp["moe"], cfg, self.axes, self.mesh)
+            return x + y, None
+
+        h, _, kv = self._decode_layers(body, h, self["layers"], state["kv"])
+        return self._logits(h[:, 0]), {"kv": kv, "pos": pos + 1}
+
+    def decode_state_specs(self, batch: int, seq_len: int):
+        return {"kv": self.kv_cache_specs(self.cfg.num_layers, batch,
+                                          seq_len),
+                "pos": torch.empty((), dtype=torch.int32, device="meta")}
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 LM (attention-free)
+# ---------------------------------------------------------------------------
+
+
+class MambaLM(BaseLM):
+    @staticmethod
+    def init_tree(cfg: ModelConfig, gen) -> dict:
+        p = BaseLM._embed_tree(cfg, gen)
+        p["layers"] = M.mamba_params(gen, cfg, cfg.num_layers)
+        return p
+
+    def prefill(self, batch, pad_to: int | None = None):
+        cfg = self.cfg
+        h = self._embed(batch["tokens"])
+        S = h.shape[1]
+        h, (ssm, conv) = L.xscan(
+            cfg, lambda x, lp: M.mamba_block(x, lp, cfg, self.axes), h,
+            self["layers"])
+        logits = self._logits(h[:, -1])
+        return logits, {"ssm": ssm, "conv": conv, "pos": self._pos(S)}
+
+    def decode_step(self, state, tokens):
+        cfg = self.cfg
+        h = self._embed(tokens[:, None])
+
+        def body(x, inp):
+            lp, ssm, conv = inp
+            return M.mamba_block_decode(x, lp, cfg, self.axes, (ssm, conv))
+
+        h, (ssm, conv) = L.xscan(
+            cfg, body, h, (self["layers"], state["ssm"], state["conv"]))
+        logits = self._logits(h[:, 0])
+        return logits, {"ssm": ssm, "conv": conv, "pos": state["pos"] + 1}
+
+    def decode_state_specs(self, batch: int, seq_len: int):
+        ssm, conv = M.mamba_state_specs(self.cfg, batch, self.cfg.num_layers)
+        return {"ssm": ssm, "conv": conv,
+                "pos": torch.empty((), dtype=torch.int32, device="meta")}
+
+
+# ---------------------------------------------------------------------------
+# Hybrid (zamba2): Mamba2 trunk + one weight-shared attention block
+# ---------------------------------------------------------------------------
+
+
+class HybridLM(BaseLM):
+    """``num_layers`` Mamba2 blocks; after every ``attn_every`` of them the
+    *same* (weight-shared) transformer block runs. Params for the SSM trunk
+    are stacked (n_super, attn_every, ...) for a two-level loop; the shared
+    block's KV cache has one entry a super-block."""
+
+    @property
+    def n_super(self) -> int:
+        return self.cfg.num_layers // self.cfg.attn_every
+
+    @staticmethod
+    def init_tree(cfg: ModelConfig, gen) -> dict:
+        if cfg.num_layers % cfg.attn_every:
+            raise ValueError(f"num_layers {cfg.num_layers} is not a "
+                             f"multiple of attn_every {cfg.attn_every}")
+        n_super = cfg.num_layers // cfg.attn_every
+        p = BaseLM._embed_tree(cfg, gen)
+        flat = M.mamba_params(gen, cfg, cfg.num_layers)
+        p["ssm_layers"] = {
+            k: a.reshape(n_super, cfg.attn_every, *a.shape[1:])
+            for k, a in flat.items()}
+        p["shared"] = L.block_params(gen, cfg)  # unstacked = weight-shared
+        return p
+
+    def _super_block(self, x, sp, angles):
+        """attn_every mamba layers then the shared attention block;
+        returns (x, ((ssm_states, conv_states), k, v))."""
+        cfg = self.cfg
+        shared = self["shared"]
+        x, states = L.xscan(
+            cfg, lambda x, lp: M.mamba_block(x, lp, cfg, self.axes), x, sp)
+        x, kv = self._attn_layer_kv(x, shared, angles)
+        hn = L.rms_norm(x, shared["ln2"], cfg.norm_eps)
+        x = x + L.mlp_block(hn, shared["mlp"], cfg, self.axes)
+        return x, (states, kv["k"], kv["v"])
+
+    def prefill(self, batch, pad_to: int | None = None):
+        cfg = self.cfg
+        h = self._embed(batch["tokens"])
+        B, S, _ = h.shape
+        angles = _angles(cfg, _positions(cfg, B, S, device=h.device))
+        h, (states, k, v) = L.xscan(
+            cfg, lambda x, sp: self._super_block(x, sp, angles), h,
+            self["ssm_layers"])
+        ssm, conv = states
+        logits = self._logits(h[:, -1])
+        kv = self._pad_kv({"k": k, "v": v}, pad_to)
+        return logits, {"ssm": ssm, "conv": conv, "kv": kv,
+                        "pos": self._pos(S)}
+
+    def decode_step(self, state, tokens):
+        cfg = self.cfg
+        h = self._embed(tokens[:, None])
+        pos = state["pos"]
+        Smax = state["kv"]["k"].shape[2]
+        write_pos = torch.clamp(pos, max=Smax - 1)
+        angles = self._decode_angles(h.shape[0], pos)
+        shared = self["shared"]
+
+        def inner(x, lpst):
+            lp, s1, s2 = lpst
+            return M.mamba_block_decode(x, lp, cfg, self.axes, (s1, s2))
+
+        def body(x, inp, cache):
+            sp, ssm, conv = inp
+            x, (ssm, conv) = L.xscan(cfg, inner, x, (sp, ssm, conv))
+            x, _ = L.transformer_block_decode(x, shared, cfg, self.axes,
+                                              angles, cache, write_pos)
+            return x, (ssm, conv)
+
+        h, (ssm, conv), kv = self._decode_layers(
+            body, h, (self["ssm_layers"], state["ssm"], state["conv"]),
+            state["kv"])
+        logits = self._logits(h[:, 0])
+        return logits, {"ssm": ssm, "conv": conv, "kv": kv, "pos": pos + 1}
+
+    def decode_state_specs(self, batch: int, seq_len: int):
+        cfg = self.cfg
+        ssm, conv = M.mamba_state_specs(cfg, batch, cfg.num_layers)
+
+        def re(s):
+            return torch.empty((self.n_super, cfg.attn_every, *s.shape[1:]),
+                               dtype=s.dtype, device="meta")
+        return {"ssm": re(ssm), "conv": re(conv),
+                "kv": self.kv_cache_specs(self.n_super, batch, seq_len),
+                "pos": torch.empty((), dtype=torch.int32, device="meta")}
+
+
+FAMILIES = {
+    "dense": DenseLM,
+    "vlm": DenseLM,
+    "moe": MoeLM,
+    "ssm": MambaLM,
+    "hybrid": HybridLM,
+}
+
+_ENCDEC = ("the encoder-decoder family (EncDecLM) is not ported yet: it "
+           "comes with the training slice of the port (ROADMAP.md queue 1, "
+           "item 7a)")
+
+
+def build_model(cfg: ModelConfig, axes: MeshAxes | None = None, mesh=None,
+                *, device="cuda"):
+    """The family's model with its parameters allocated, not drawn, on
+    ``device`` (``"meta"``: shapes only); draw them with
+    ``model.init(generator)`` or load them with ``models.carry``."""
+    if cfg.family == "encdec":
+        raise NotImplementedError(_ENCDEC)
+    if axes is not None and axes.enabled:
+        from repro_torch.models.sharding import _MESH_SLICE  # noqa: PLC0415
+        raise NotImplementedError(_MESH_SLICE)
+    model = FAMILIES[cfg.family](cfg, axes, mesh)
+    if torch.device(device).type == "meta":
+        return model
+    return model.to_empty(device=device)

@@ -13,9 +13,13 @@ they all report through:
   (``EngineStats.as_dict()``, ``device_stats()``, the server's per-endpoint
   summaries) behind canonical dotted instrument names.
 
+* :mod:`repro_torch.obs.export` — Chrome trace-event JSON (Perfetto) and
+  JSONL exporters, and ``load_events`` reading either back for
+  :mod:`repro_torch.analysis.wave_report` (``scripts/analyze_torch.py
+  --trace-report``).
+
 Span names and metric alias tables are those of the reference package's
-``repro.obs``.  Trace export (Chrome trace-event JSON) and the per-wave
-report are not ported yet.
+``repro.obs``.
 """
 from repro_torch.obs.tracer import (NULL_SPAN, Tracer, counter, enabled,
                                           get_tracer, instant, set_tracer, span,

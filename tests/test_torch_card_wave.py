@@ -213,3 +213,36 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(card):
     args[7] = torch.ones((60_000, 8), dtype=torch.bool, device=card)
     with pytest.raises(ValueError, match="shared memory"):
         wd.wave_dispatch(*args)
+
+
+def test_traced_waves_record_the_kernel_interval_on_the_device_track(card):
+    """A traced wave's device-track ``wave.kernel`` span is the kernel's
+    CUDA-event interval, recorded when the outputs reach the host, not the
+    launch's host interval: on every traced wave the spans sum to the
+    executor's ``kernel_ns``, one span a launch."""
+    from repro_torch.core.batch_sim import BatchSimMachine
+    from repro_torch.core.isa import TEST_ISA
+    from repro_torch.core.machine import RegPool, independent_seq
+    from repro_torch.core.uarch import SIM_SKL
+    from repro_torch.obs import tracer as obs
+
+    m = BatchSimMachine(SIM_SKL, TEST_ISA, backend="cuda", device=card,
+                        min_lanes=1)
+    codes = [independent_seq(TEST_ISA[s], RegPool(), 3) * n
+             for s in ("ADD_R64_R64", "IMUL_R64_R64", "DIV_R64", "CMC")
+             for n in (10, 110)]
+    tr = obs.Tracer(enabled=True)
+    old = obs.set_tracer(tr)
+    try:
+        calls = 0
+        for n in (len(codes), 3, len(codes)):
+            m.run_batch(codes[:n])
+            st = m.device_stats()
+            spans = [e for e in tr.events() if e["name"] == "wave.kernel"]
+            assert {e["tid"] for e in spans} == {"device:cuda:0"}
+            assert len(spans) == st["kernel_calls"] > calls
+            assert sum(e["dur"] for e in spans) == \
+                st["kernel_ns"]["device:cuda:0"]
+            calls = st["kernel_calls"]
+    finally:
+        obs.set_tracer(old)

@@ -62,7 +62,11 @@ def test_package_has_the_slice_modules():
                  "service.client", "service.loadgen", "corpus.store",
                  "corpus.generate", "corpus.score", "corpus.evaluate",
                  "corpus.__main__", "tools.port_bound_ablation",
-                 "tools.port_bound_crossover"):
+                 "tools.port_bound_crossover", "obs.export", "analysis",
+                 "analysis.wave_report", "analysis.roofline",
+                 "models.sharding", "models.layers", "models.moe",
+                 "models.transformer", "models.model", "models.carry",
+                 "train", "train.serve"):
         assert f"repro_torch.{name}" in mods, name
 
 
@@ -147,7 +151,7 @@ def test_sources_never_mention_the_reference_package_in_imports():
     entry_points = [SRC.parent / f for f in (
         "chip_smoke.py", "scripts/analyze_torch.py",
         "examples/serve_models_torch.py", "examples/quickstart_torch.py",
-        "examples/export_models_torch.py")]
+        "examples/export_models_torch.py", "examples/serve_batched_torch.py")]
     for path in [*root.rglob("*.py"), *entry_points]:
         for line in path.read_text().splitlines():
             s = line.strip()

@@ -15,6 +15,10 @@ its own.
   as in the port.
 * ``scripts/analyze_torch.py --corpus-report`` prints what
   ``scripts/analyze.py --corpus-report`` prints.
+* ``examples/serve_batched_torch.py --device cpu`` runs at its reduced
+  default dims and prints the reference script's model and memory-floor
+  lines (its times and token ids are its own: other weights, another
+  device).
 
 The port's scripts run with ``jax``, ``jaxlib`` and ``repro`` poisoned in
 ``sys.modules``.  Both export scripts write next to themselves
@@ -174,3 +178,19 @@ def test_analyze_without_a_block_names_the_corpus_report():
         env=_env(**CPU_ENV), capture_output=True, text=True, timeout=120)
     assert proc.returncode == 2
     assert "--corpus-report" in proc.stderr
+
+
+def test_serve_batched_prints_the_reference_memory_floor():
+    want = _run_ref(ROOT / "examples" / "serve_batched.py").splitlines()
+    got = _run_port(ROOT / "examples" / "serve_batched_torch.py",
+                    "--device", "cpu").splitlines()
+    assert len(got) == len(want) == 5
+    for g, w, head in zip(got, want, ("model:", "prefill: 8x128 tokens in ",
+                                      "decode: 63 steps x8 in ",
+                                      "memory floor per decode step: ",
+                                      "sample continuation token ids: ")):
+        assert g.startswith(head) and w.startswith(head), (g, w)
+    assert got[0] == want[0]
+    assert got[3] == want[3]
+    ids = got[4].split(": ", 1)[1]
+    assert len(json.loads(ids)) == 16

@@ -471,5 +471,18 @@ def test_analyze_torch_script(model_dir, tmp_path, capsys, monkeypatch):
                      "--uarch", "sim_skl"]) == 0
     resp = json.loads(capsys.readouterr().out)
     assert resp["sim_skl"]["ok"] is True
-    with pytest.raises(SystemExit):
-        mod.main([str(block), "--trace-report", "x"])
+    # --trace-report reads a trace file in place of a block (its output
+    # against the reference script's is in tests/test_torch_obs_export.py)
+    from repro_torch.obs import tracer as obs
+    from repro_torch.obs.export import write_jsonl
+    tr = obs.Tracer(enabled=True)
+    tr.emit_span("wave.kernel", tr.t0_ns, 2_000_000, track="device:cpu")
+    tr.emit_span("wave.run_batch", tr.t0_ns, 3_000_000)
+    trace = tmp_path / "run.trace.jsonl"
+    write_jsonl(trace, tr)
+    assert mod.main(["--trace-report", str(trace)]) == 0
+    out = capsys.readouterr().out
+    assert "1 wave(s), bottleneck: kernel-bound" in out
+    assert "device:cpu" in out
+    with pytest.raises(FileNotFoundError):
+        mod.main(["--trace-report", str(tmp_path / "missing.json")])
