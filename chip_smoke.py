@@ -70,6 +70,18 @@ drives the port's paths on the card:
   peak memory beside the card's name and power limit.  The models are
   plain PyTorch, as the reference's are plain jnp: no kernel of the port
   is on this path.
+* **training** (``launch/train.py``, ``train/train_loop.py``,
+  ``optim/adamw.py``, ``checkpoint/checkpoint.py``, ``data/pipeline.py``).
+  SmolLM-360M uncut (f32 weights and AdamW state, bf16 compute, full
+  remat) through ``launch.train.train``: 30 steps of 8 x 128 tokens with
+  a checkpoint every 10, the loss falling and every gradient norm finite;
+  a run resumed from the step-10 checkpoint equals the uninterrupted
+  run's step-20 checkpoint; ms a step, tokens/s, peak memory beside
+  weights and AdamW state, and the card's busy share of 2 profiled
+  steps.  Qwen2-VL-2B, Phi-3.5-MoE, Mamba2-2.7B, Zamba2-2.7B and
+  Whisper-medium train 2 steps each at full width, depth cut, and one
+  f32 backward of every family equals the CPU's.  No kernel of the port
+  is on this path either.
 
 Every phase prints a line; any failure exits non-zero and prints no
 result.  The last three lines are the card's name and power limit, the
@@ -613,13 +625,7 @@ def phase_breakdown():
     log(f"[breakdown] traced campaign wall {wall:.3f} s; host thread-seconds "
         "per span: " + ", ".join(f"{k} {v / 1e9:.3f}"
                                  for k, v in sorted(spans.items())))
-    device_us: dict = {}
-    for item in prof.key_averages():
-        us = getattr(item, "self_device_time_total", None)
-        if us is None:
-            us = getattr(item, "self_cuda_time_total", 0)
-        if us:
-            device_us[item.key] = us
+    device_us = {k: us for k, (us, _) in _device_us(prof).items()}
     busy = sum(device_us.values()) / 1e6
     top = sorted(device_us.items(), key=lambda kv: -kv[1])[:6]
     log(f"[breakdown] device busy {busy:.4f} s of {wall:.3f} s wall "
@@ -1601,10 +1607,12 @@ PREFILL_RUNS = 3         # timed prefills, their median reported
 
 def _on(model, cfg, device=None, layers=None):
     """``model``'s weights under ``cfg`` (shared, or copied to ``device``),
-    the stacked layer dimension cut to its first ``layers``."""
+    every stacked layer dimension (``layers``, an encoder-decoder's
+    ``enc_layers`` and ``dec_layers``) cut to its first ``layers``."""
     from repro_torch.models.model import build_model
     m = build_model(cfg, device="meta")
-    sd = {k: (v[:layers] if layers and k.startswith("layers.") else v)
+    stacked = ("layers.", "enc_layers.", "dec_layers.")
+    sd = {k: (v[:layers] if layers and k.startswith(stacked) else v)
           for k, v in model.state_dict().items()}
     m.load_state_dict({k: v.to(device) if device else v
                        for k, v in sd.items()}, strict=True, assign=True)
@@ -1645,18 +1653,31 @@ def phase_models(smi):
     return out
 
 
-def _device_busy(prof):
-    """(device-busy seconds, kernel launches) of a ``torch.profiler``
-    window, or (None, None) when it recorded no device time."""
-    busy, launches = 0.0, 0
+def _device_us(prof, operators=False):
+    """{name: (self device µs, count)} of a ``torch.profiler`` window:
+    the device's own events (kernels, copies, fills), or with
+    ``operators`` the operators that launched them, each with the device
+    time of its own kernels.  ``key_averages()`` holds both, and each
+    kernel's time once in each: sum one kind only."""
+    from torch.autograd import DeviceType
+    out = {}
     for item in prof.key_averages():
+        if (item.device_type == DeviceType.CPU) != operators:
+            continue
         us = getattr(item, "self_device_time_total", None)
         if us is None:
             us = getattr(item, "self_cuda_time_total", 0)
         if us:
-            busy += us / 1e6
-            launches += item.count
-    return (busy, launches) if busy else (None, None)
+            out[item.key] = (us, item.count)
+    return out
+
+
+def _device_busy(prof):
+    """(device-busy seconds, kernel launches) of a ``torch.profiler``
+    window, or (None, None) when it recorded no device time."""
+    times = _device_us(prof).values()
+    busy = sum(us for us, _ in times) / 1e6
+    return (busy, sum(n for _, n in times)) if busy else (None, None)
 
 
 def _serve_model(arch, cut, B, S, steps, smi):
@@ -1805,6 +1826,374 @@ def _serve_model(arch, cut, B, S, steps, smi):
                                  else kernels / PROFILE_STEPS),
             "consistency_max_abs": cons, "card_cpu_max_abs": errs,
             "card_cpu_layers": cfg_chk.num_layers, "card": smi}
+
+
+# ---------------------------------------------------------------- training
+# SmolLM-360M uncut through the trainer's entry point, launch.train.train:
+# f32 weights and AdamW state, bf16 compute, remat "full"
+TRAIN_ARCH = "smollm_360m"
+TRAIN_BATCH, TRAIN_SEQ = 8, 128
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_RESUME_AT = 30, 10, 10
+TRAIN_OPT = {"lr": 1e-3, "warmup_steps": 10, "total_steps": TRAIN_STEPS}
+# a resumed run against the uninterrupted one: the reference test's
+# tolerance (tests/test_substrate.py::test_train_resume_from_checkpoint)
+RESUME_ATOL, RESUME_RTOL = 2e-4, 2e-3
+TIMED_TRAIN_STEPS = 5    # synchronised steps, their median reported
+PROFILED_TRAIN_STEPS = 2
+# (arch, depth cut, batch, text positions): the other families at full
+# width, two train steps each through make_train_step
+TRAIN_MODELS = (("qwen2_vl_2b", {"num_layers": 4}, 2, 256),
+                ("phi3_5_moe_42b", {"num_layers": 2}, 2, 256),
+                ("mamba2_2_7b", {"num_layers": 4}, 2, 256),
+                ("zamba2_2_7b", {"num_layers": 6}, 2, 256),
+                ("whisper_medium", {"num_layers": 2,
+                                    "num_decoder_layers": 2}, 2, 256))
+TRAIN_FAMILY_STEPS = 2
+# a cut whose weights, gradients, AdamW moments and the update's
+# temporaries (4 x the weights + 4 x the largest leaf) would pass this
+# runs one layer fewer
+TRAIN_PEAK_LIMIT = 70 * 2**30
+# one loss.backward() on the card against the CPU, f32 compute, TF32 off
+TRAIN_LOSS_REL = 1e-4
+TRAIN_GRAD_REL = 1e-3
+TRAIN_SEED = 0
+
+
+def _gnorms(lines):
+    return [float(m.group(1)) for line in lines
+            for m in [re.search(r"gnorm=(\S+)", line)] if m]
+
+
+def _loss_grads(model, batch):
+    model.requires_grad_(True)
+    loss, _ = model.loss(batch)
+    names, params = zip(*model.named_parameters())
+    grads = torch.autograd.grad(loss, params)
+    return float(loss.detach()), dict(zip(names, grads))
+
+
+def _card_vs_cpu(arch, model, cfg, batch):
+    """One loss.backward() at CHECK_LAYERS layers (the hybrid: one
+    super-block) in f32 compute on the card and on the CPU, the same
+    weights and batch: (loss rel. difference, worst leaf's max |d| over
+    its max |g|, layers)."""
+    layers = (None if cfg.family == "hybrid"
+              else min(CHECK_LAYERS, cfg.num_layers))
+    cut = {"compute_dtype": torch.float32}
+    if layers:
+        cut["num_layers"] = layers
+        if cfg.family == "encdec":
+            cut["num_decoder_layers"] = min(layers, cfg.num_decoder_layers)
+    cfg_chk = cfg.replace(**cut)
+    m_card = _on(model, cfg_chk, layers=layers)
+    loss_card, g_card = _loss_grads(m_card, batch)
+    g_card = {k: v.cpu() for k, v in g_card.items()}
+    del m_card
+    torch.cuda.empty_cache()
+    m_cpu = _on(model, cfg_chk, "cpu", layers)
+    loss_cpu, g_cpu = _loss_grads(m_cpu, {k: v.cpu()
+                                          for k, v in batch.items()})
+    loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    worst = max(float((g_card[k] - g).abs().max()) /
+                max(float(g.abs().max()), 1e-30) for k, g in g_cpu.items())
+    require(loss_rel <= TRAIN_LOSS_REL,
+            f"{arch}: card and CPU losses differ by {loss_rel:.3g} (rel)")
+    require(worst <= TRAIN_GRAD_REL,
+            f"{arch}: card and CPU gradients differ by {worst:.3g} of a "
+            "leaf's largest")
+    return loss_rel, worst, cfg_chk.num_layers
+
+
+def phase_train(smi):
+    """Training on the card through the trainer's entry points.
+
+    SmolLM-360M uncut through ``launch.train.train(device="cuda")``:
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens of the synthetic pipeline,
+    ``TRAIN_STEPS`` steps with a checkpoint every ``TRAIN_CKPT_EVERY``; the
+    loss must fall and every gradient norm be finite.  A run to step 20
+    resumed from the step-10 checkpoint must equal the uninterrupted run's
+    step-20 checkpoint (``RESUME_ATOL``/``RESUME_RTOL``).  Then timed and
+    profiled steps of the same model.  Each config of ``TRAIN_MODELS``
+    (the other families at full width, depth cut) trains
+    ``TRAIN_FAMILY_STEPS`` steps through ``make_train_step``, and one
+    backward of each family (SmolLM included) equals the CPU's in f32
+    (``TRAIN_LOSS_REL``, ``TRAIN_GRAD_REL``)."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.checkpoint.checkpoint import restore_checkpoint
+    from repro_torch.configs.base import ShapeSpec, load_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.launch.train import train
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_loop import make_train_step
+    from repro_torch.tree_util import tree_leaves
+
+    t_phase = time.perf_counter()
+    card = torch.device("cuda:0")
+    cfg = load_config(TRAIN_ARCH)
+    shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    opt = adamw.AdamWConfig(**TRAIN_OPT)
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"arch": TRAIN_ARCH, "name": cfg.name, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "card": smi}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        run_a, run_b = Path(tmp) / "a", Path(tmp) / "b"
+        logged = []   # (host time, line): a step's line follows its sync
+        t0 = time.perf_counter()
+        model, state, losses = train(
+            cfg, shape, steps=TRAIN_STEPS, opt_cfg=opt, ckpt_dir=run_a,
+            ckpt_interval=TRAIN_CKPT_EVERY, log_every=1,
+            log_fn=lambda line: logged.append((time.perf_counter(), line)),
+            seed=TRAIN_SEED, device=card)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        lines = [line for _, line in logged]
+        # from the start to the last step's line: init and every step
+        # (with the snapshots of steps 10 and 20 and the waits for a
+        # running save); after it: the last save
+        steps_s = logged[-1][0] - t0
+        peak = torch.cuda.max_memory_allocated()
+        weights = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+        state_bytes = sum(t.numel() * t.element_size()
+                          for t in tree_leaves((state.mu, state.nu)))
+        gnorms = _gnorms(lines)
+        require(len(losses) == TRAIN_STEPS == len(gnorms),
+                f"train logged {len(losses)} losses, {len(gnorms)} norms")
+        require(all(np.isfinite(g) for g in gnorms),
+                f"a gradient norm is not finite: {gnorms}")
+        require(losses[-1][1] < losses[0][1],
+                f"the loss did not fall: {losses[0][1]} -> {losses[-1][1]}")
+        ckpts = sorted(p.name for p in run_a.iterdir())
+        log(f"[train] {cfg.name} uncut (d_model {cfg.d_model}, "
+            f"{cfg.num_layers} layers, vocab {cfg.vocab_size}, f32 weights "
+            f"and AdamW state, bf16 compute, remat {cfg.remat}) through "
+            f"launch.train.train: {TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+            f"{TRAIN_SEQ} in {run_s:.1f} s ({steps_s:.1f} s to the last "
+            f"step's log line, {run_s - steps_s:.1f} s then for the last "
+            f"checkpoint; checkpoints {ckpts}); loss "
+            f"{losses[0][1]:.4f} -> {losses[-1][1]:.4f}, gnorm "
+            f"{min(gnorms):.3f}..{max(gnorms):.3f}, all finite ({smi})")
+
+        # timed and profiled steps of the trained model, past its schedule
+        step_fn = make_train_step(model, opt)
+        data = SyntheticTokens(cfg, shape, DataConfig(
+            seed=TRAIN_SEED, vocab_size=min(cfg.vocab_size, 512)),
+            device=card)
+        times = []
+        for i in range(TIMED_TRAIN_STEPS):
+            batch = data.batch_at(TRAIN_STEPS + i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, state, metrics = step_fn(model, state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        step_ms = 1e3 * _median(times)
+        batches = [data.batch_at(TRAIN_STEPS + TIMED_TRAIN_STEPS + i)
+                   for i in range(PROFILED_TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for batch in batches:
+                _, state, metrics = step_fn(model, state, batch)
+            torch.cuda.synchronize()
+        busy_s, kernels = _device_busy(prof)
+        busy = (None if busy_s is None else
+                busy_s / (PROFILED_TRAIN_STEPS * step_ms / 1e3))
+        # the operators whose kernels hold the card longest, device ms
+        # and calls a step
+        top = [(k, us / 1e3 / PROFILED_TRAIN_STEPS, n / PROFILED_TRAIN_STEPS)
+               for k, (us, n) in sorted(
+                   _device_us(prof, operators=True).items(),
+                   key=lambda kv: -kv[1][0])[:8]]
+        tok_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+        require(bool(torch.isfinite(metrics["loss"])),
+                "a timed step's loss is not finite")
+        busy_text = ("the profiler recorded no device time" if busy_s is None
+                     else f"device busy {100 * busy:.1f}% of a step "
+                     f"({PROFILED_TRAIN_STEPS} profiled steps' device time "
+                     f"over the median step's wall, "
+                     f"{kernels / PROFILED_TRAIN_STEPS:.0f} kernels a step)")
+        log(f"[train] {cfg.name}: {step_ms:.1f} ms a train step (median of "
+            f"{TIMED_TRAIN_STEPS} synchronised, {min(times) * 1e3:.1f}-"
+            f"{max(times) * 1e3:.1f}), {tok_s:.0f} tokens/s, {busy_text}; "
+            f"max_memory_allocated {peak / 2**30:.2f} GiB over "
+            f"{(weights + state_bytes) / 2**30:.2f} GiB of weights "
+            f"({weights / 2**30:.2f}) and AdamW state, "
+            f"{before / 2**30:.2f} GiB held before ({smi})")
+        log(f"[train] {cfg.name}: the operators longest on the card, "
+            f"their kernels' device ms and calls a step: " + ("; ".join(
+                f"{k[:60]} {ms:.2f} ms x {n:.0f}" for k, ms, n in top)
+                if top else "not measured (no device time recorded)"))
+        out.update(run_s=run_s, run_steps_s=steps_s, losses=losses, grad_norms=gnorms,
+                   step_ms=step_ms, step_runs_ms=[1e3 * t for t in times],
+                   tokens_per_s=tok_s, device_busy_share=busy,
+                   kernels_per_step=(None if kernels is None
+                                     else kernels / PROFILED_TRAIN_STEPS),
+                   top_operators=[{"name": k, "device_ms_per_step": ms,
+                                   "calls_per_step": n}
+                                  for k, ms, n in top],
+                   peak_bytes=peak, weight_bytes=weights,
+                   adamw_state_bytes=state_bytes, bytes_before=before)
+        del model, state, step_fn, metrics, batches, prof
+
+        # resume: step 10's checkpoint, run to step 20, against step 20's
+        run_b.mkdir()
+        ckpt = f"{TRAIN_RESUME_AT:08d}.ckpt"
+        shutil.copytree(run_a / ckpt, run_b / ckpt)
+        resumed = []
+        t0 = time.perf_counter()
+        model, state, _ = train(
+            cfg, shape, steps=2 * TRAIN_RESUME_AT, opt_cfg=opt,
+            ckpt_dir=run_b, ckpt_interval=TRAIN_CKPT_EVERY, log_every=5,
+            log_fn=resumed.append, seed=TRAIN_SEED, device=card)
+        resume_s = time.perf_counter() - t0
+        require(resumed and resumed[0] ==
+                f"[train] resumed from step {TRAIN_RESUME_AT}",
+                f"the run did not resume: {resumed[:1]}")
+        step, want, _ = restore_checkpoint(
+            run_a / f"{2 * TRAIN_RESUME_AT:08d}.ckpt", (model, state))
+        require(step == 2 * TRAIN_RESUME_AT, f"checkpoint step {step}")
+        diffs = [(float((a - b).abs().max()), bool(torch.equal(a, b)),
+                  bool(torch.allclose(a, b, atol=RESUME_ATOL,
+                                      rtol=RESUME_RTOL)))
+                 for a, b in zip((t.detach().float() for t in
+                                  tree_leaves((model, state))),
+                                 (t.float() for t in tree_leaves(want)))]
+        resume_max = max(d[0] for d in diffs)
+        identical = all(d[1] for d in diffs)
+        require(all(d[2] for d in diffs),
+                f"the resumed run differs from the uninterrupted one by "
+                f"{resume_max:.3g} (atol {RESUME_ATOL}, rtol {RESUME_RTOL})")
+        log(f"[train] {cfg.name}: resumed at step {TRAIN_RESUME_AT} from its "
+            f"checkpoint, {TRAIN_RESUME_AT} steps to {2 * TRAIN_RESUME_AT} "
+            f"in {resume_s:.1f} s: params and AdamW state "
+            + ("bit-identical to" if identical else
+               f"within {resume_max:.3g} of (not bit-identical: the card's "
+               f"kernels are not run-to-run deterministic here; tolerance "
+               f"atol {RESUME_ATOL}, rtol {RESUME_RTOL}, the reference "
+               f"test's)")
+            + f" the uninterrupted run's step-{2 * TRAIN_RESUME_AT} "
+            f"checkpoint ({len(diffs)} leaves)")
+        out.update(resume_s=resume_s, resume_max_abs=resume_max,
+                   resume_bit_identical=identical)
+        del model, state, want
+
+    # card = CPU for SmolLM, then every other family
+    gen = torch.Generator(device=card).manual_seed(TRAIN_SEED)
+    model = build_model(cfg, device=card).init(gen)
+    chk = _train_batch(cfg, 2, CHECK_SEQ, card)
+    loss_rel, worst, layers = _card_vs_cpu(TRAIN_ARCH, model, cfg, chk)
+    out["card_cpu"] = {"loss_rel": loss_rel, "grad_rel": worst,
+                       "layers": layers}
+    log(f"[train] {cfg.name}: one backward at {layers} layers, f32: card vs "
+        f"CPU loss {loss_rel:.3g} (rel, tol {TRAIN_LOSS_REL}), gradients "
+        f"{worst:.3g} of a leaf's largest (tol {TRAIN_GRAD_REL})")
+    del model, chk
+    out["families"] = [_train_family(arch, cut, B, S, smi)
+                       for arch, cut, B, S in TRAIN_MODELS]
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[train] phase wall {out['wall_s']:.1f} s")
+    return out
+
+
+def _train_batch(cfg, B, text, device):
+    """``B`` rows of the synthetic pipeline's step 0 with ``text`` token
+    positions (a VLM row adds its patch positions)."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    seq = text + (cfg.num_patch_tokens if cfg.family == "vlm" else 0)
+    data = SyntheticTokens(cfg, ShapeSpec("train", seq, B, "train"),
+                           DataConfig(seed=TRAIN_SEED,
+                                      vocab_size=min(cfg.vocab_size, 512)),
+                           device=device)
+    return data.batch_at(0)
+
+
+def _train_family(arch, cut, B, S, smi):
+    """One config of TRAIN_MODELS: TRAIN_FAMILY_STEPS synchronised train
+    steps through make_train_step, then the card = CPU backward; all it
+    allocates on the card is freed when it returns."""
+    from repro_torch.configs.base import load_config
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_loop import make_train_step
+    from repro_torch.tree_util import tree_leaves
+
+    card = torch.device("cuda:0")
+    t_family = time.perf_counter()
+    full = load_config(arch)
+    cfg = full.replace(**cut)
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    meta = build_model(cfg, device="meta")
+    sizes = [p.numel() * p.element_size() for p in meta.parameters()]
+    estimate = 4 * sum(sizes) + 4 * max(sizes)
+    if estimate > TRAIN_PEAK_LIMIT:
+        layers = cfg.num_layers - 1
+        log(f"[train] {full.name}: {cfg.num_layers} layers would need "
+            f"~{estimate / 2**30:.1f} GiB (weights, gradients, AdamW moments "
+            f"and the update's temporaries): cut to {layers}")
+        cfg = cfg.replace(num_layers=layers)
+        cut = dict(cut, num_layers=layers)
+    gen = torch.Generator(device=card).manual_seed(TRAIN_SEED)
+    model = build_model(cfg, device=card).init(gen)
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    state = adamw.init_state(model)
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves((state.mu, state.nu)))
+    step_fn = make_train_step(model, adamw.AdamWConfig(
+        lr=1e-3, warmup_steps=1, total_steps=TRAIN_FAMILY_STEPS))
+    batch = _train_batch(cfg, B, S, card)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses, gnorms = [], [], []
+    for _ in range(TRAIN_FAMILY_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, state, metrics = step_fn(model, state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated()
+    require(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+            f"{arch}: loss {losses}, gnorm {gnorms}")
+    positions = batch["tokens"].shape[1] + (
+        cfg.num_patch_tokens if cfg.family == "vlm" else 0)
+    del state, step_fn, metrics
+    torch.cuda.empty_cache()
+    chk = _train_batch(cfg, 2, CHECK_SEQ, card)
+    t_check = time.perf_counter()
+    loss_rel, worst, layers = _card_vs_cpu(arch, model, cfg, chk)
+    check_s = time.perf_counter() - t_check
+    wall_s = time.perf_counter() - t_family
+    cuts = ", ".join(f"{k} {v} of {getattr(full, k)}" for k, v in cut.items())
+    frames = (f", {cfg.num_audio_frames} audio frames"
+              if cfg.family == "encdec" else "")
+    log(f"[train] {full.name} ({cfg.family}, {cuts}, d_model {cfg.d_model}"
+        f"{frames}, f32 weights and AdamW state, bf16 compute, remat "
+        f"{cfg.remat}): {TRAIN_FAMILY_STEPS} steps of {B} x {positions} "
+        f"positions, {times[-1] * 1e3:.1f} ms the last (first "
+        f"{times[0] * 1e3:.1f}), loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+        f"gnorm {gnorms}, max_memory_allocated {peak / 2**30:.2f} GiB over "
+        f"{(weights + state_bytes) / 2**30:.2f} GiB of weights "
+        f"({weights / 2**30:.2f}) and AdamW state; one backward at {layers} "
+        f"layers, f32: card vs CPU loss {loss_rel:.3g} (rel), gradients "
+        f"{worst:.3g} of a leaf's largest, in {check_s:.1f} s of the "
+        f"config's {wall_s:.1f} s ({smi})")
+    return {"arch": arch, "wall_s": wall_s, "check_s": check_s, "name": full.name, "family": cfg.family,
+            "cut": cut, "batch": B, "positions": positions,
+            "step_ms": [1e3 * t for t in times], "losses": losses,
+            "grad_norms": gnorms, "peak_bytes": peak, "weight_bytes": weights,
+            "adamw_state_bytes": state_bytes, "bytes_before": before,
+            "card_cpu": {"loss_rel": loss_rel, "grad_rel": worst,
+                         "layers": layers}, "card": smi}
 
 
 # --------------------------------------------------------- unit blockers
@@ -2647,6 +3036,7 @@ def main():
     ops_times = phase_ops_timing(ops_inputs)
     del ops_inputs
     model_serving = phase_models(smi)
+    training = phase_train(smi)
     big = timing["largest"]
     report = {"kernels": [{
         "name": "wave_dispatch", "route": "cuda",
@@ -2723,6 +3113,7 @@ def main():
     report["scripts"] = scripts
     report["trace_report"] = trace_report
     report["models"] = model_serving
+    report["train"] = training
     print(smi, flush=True)
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {

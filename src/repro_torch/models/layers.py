@@ -20,8 +20,9 @@ in the reference's order, so that bf16 rounding follows the same steps:
 
 The attention here is the reference's plain-``jnp`` function, which its
 models call (``cfg.attn_impl`` is read nowhere), not the flash-attention
-kernel of ``kernels/ops.py``; the cross-attention blocks of the
-encoder-decoder family wait for its slice.
+kernel of ``kernels/ops.py``.  Training differentiates these functions
+with autograd (the reference: ``jax.value_and_grad``); :func:`_tp_out`
+tags the two outputs that ``cfg.remat = "tp_out"`` saves.
 """
 from __future__ import annotations
 
@@ -44,7 +45,8 @@ class ParamTree(nn.Module):
     ``named_parameters()`` gives the reference tree's paths
     (``layers.attn.wq``) and ``p["attn"]["wq"]`` reads like the
     reference's dict.  Serving never differentiates, so the parameters
-    are made without gradients (``requires_grad_()`` turns them on)."""
+    are made without gradients; training turns them on
+    (``train_loop.make_train_step`` calls ``requires_grad_(True)``)."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -72,17 +74,6 @@ class ParamTree(nn.Module):
         return self[key] if key in self else default
 
 
-def tree_index(xs, i: int):
-    """Slice ``i`` of every leaf of a tree (dict, ParamTree, tuple, list)."""
-    if xs is None:
-        return None
-    if isinstance(xs, (dict, ParamTree)):
-        return {k: tree_index(xs[k], i) for k in xs.keys()}
-    if isinstance(xs, (tuple, list)):
-        return type(xs)(tree_index(x, i) for x in xs)
-    return xs[i]
-
-
 def _leading(xs) -> int:
     if isinstance(xs, (dict, ParamTree)):
         return _leading(xs[next(iter(xs.keys()))])
@@ -104,13 +95,29 @@ def _stack(ys: list):
     return torch.stack(ys)
 
 
+def tree_unbind(xs, n: int) -> list:
+    """The ``n`` slices along the leading dimension of every leaf of a
+    tree, as ``n`` trees: one ``unbind`` a leaf, so a backward through the
+    slices is one ``stack`` a leaf (indexing each slice alone would give
+    each its own full-size gradient, summed over the stack)."""
+    if xs is None:
+        return [None] * n
+    if isinstance(xs, (dict, ParamTree)):
+        cols = {k: tree_unbind(xs[k], n) for k in xs.keys()}
+        return [{k: c[i] for k, c in cols.items()} for i in range(n)]
+    if isinstance(xs, (tuple, list)):
+        cols = [tree_unbind(x, n) for x in xs]
+        return [type(xs)(c[i] for c in cols) for i in range(n)]
+    return list(torch.unbind(xs, 0))
+
+
 def xscan(cfg: ModelConfig, body, carry, xs):
     """``lax.scan(body, carry, xs)`` as a Python loop over the leading
     dimension of ``xs``; returns ``(carry, stacked ys)``.  Always unrolled,
     so ``cfg.unroll_scans`` has nothing to change."""
     ys = []
-    for i in range(_leading(xs)):
-        carry, y = body(carry, tree_index(xs, i))
+    for x_i in tree_unbind(xs, _leading(xs)):
+        carry, y = body(carry, x_i)
         ys.append(y)
     return carry, (_stack(ys) if ys else None)
 
@@ -350,9 +357,32 @@ def _ar_boundary(x, cfg: ModelConfig):
     return x
 
 
-def _tp_out(x, name: str):
-    """The reference's remat tag on the TP-psum outputs: a value
-    identity."""
+@torch.library.custom_op("repro_torch::checkpoint_name", mutates_args=())
+def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """``jax.ad_checkpoint.checkpoint_name``: the value of ``x`` under an
+    operator of its own, which a selective-checkpoint policy can name
+    (``transformer._remat``'s ``"tp_out"``).  A custom operator may not
+    return its input, so it returns a copy."""
+    return x.clone()
+
+
+@checkpoint_name.register_fake
+def _(x, name):
+    return torch.empty_like(x)
+
+
+checkpoint_name.register_autograd(
+    lambda ctx, grad: (grad, None))
+
+
+def _tp_out(x, name: str, cfg: ModelConfig):
+    """The reference's remat tag on the TP-psum outputs (``attn_out``,
+    ``mlp_out``): a value identity.  Under ``cfg.remat = "tp_out"``, where
+    the value takes part in a gradient, it passes through
+    :func:`checkpoint_name` (a copy), so that policy can save exactly
+    these outputs; every other setting, and serving, gets ``x`` itself."""
+    if cfg.remat == "tp_out" and torch.is_grad_enabled() and x.requires_grad:
+        return checkpoint_name(x, name)
     return x
 
 
@@ -365,7 +395,8 @@ def mlp_block(x, p, cfg: ModelConfig, axes: MeshAxes):
     else:  # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(x @ p["w_up"].to(cd), approximate="tanh")
     h = sc(h, axes, "batch", None, "model")
-    out = _tp_out(_ar_boundary(h @ p["w_down"].to(cd), cfg), "mlp_out")
+    out = _tp_out(_ar_boundary(h @ p["w_down"].to(cd), cfg), "mlp_out",
+                  cfg)
     return sc(out, axes, "batch", None, None)
 
 
@@ -392,11 +423,24 @@ def transformer_block(x, p, cfg: ModelConfig, axes: MeshAxes, angles, *,
     q, k, v = project_qkv(h, p["attn"], cfg, axes, angles)
     o = full_attention(q, k, v, cfg, axes, causal=causal)
     x = x + _tp_out(_ar_boundary(o @ p["attn"]["wo"].to(cd), cfg),
-                    "attn_out")
+                    "attn_out", cfg)
     x = sc(x, axes, "batch", None, None)
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     x = x + mlp_block(h, p["mlp"], cfg, axes)
     return sc(x, axes, "batch", None, None)
+
+
+def cross_attn_sublock(x, p, ln, cfg: ModelConfig, axes: MeshAxes, enc_out):
+    """Pre-norm cross-attention residual sub-block (enc-dec training and
+    prefill path).
+
+    ``p``: attention params; ``ln``: the norm weight; no RoPE on cross-attn.
+    """
+    cd = cfg.compute_dtype
+    h = rms_norm(x, ln, cfg.norm_eps)
+    q, k, v = project_qkv(h, p, cfg, axes, None, kv_x=enc_out)
+    o = full_attention(q, k, v, cfg, axes, causal=False)
+    return x + (o @ p["wo"].to(cd))
 
 
 def cache_write(cache, new, pos):
@@ -427,3 +471,17 @@ def transformer_block_decode(x, p, cfg: ModelConfig, axes: MeshAxes, angles,
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     x = x + mlp_block(h, p["mlp"], cfg, axes)
     return x, {"k": ck, "v": cv}
+
+
+def cross_block_decode(x, p, cfg: ModelConfig, axes: MeshAxes, enc_kv):
+    """Cross-attention sub-block for enc-dec decode (k/v precomputed).
+    ``p``: {"ln1": norm weight, "attn": attention params}."""
+    cd = cfg.compute_dtype
+    B = x.shape[0]
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    q = (h @ p["attn"]["wq"].to(cd)).reshape(B, 1, cfg.num_heads,
+                                             cfg.head_dim)
+    S_enc = enc_kv["k"].shape[1]
+    o = decode_attention(q, enc_kv["k"].to(cd), enc_kv["v"].to(cd), S_enc,
+                         cfg, axes)
+    return x + (o @ p["attn"]["wo"].to(cd))

@@ -75,8 +75,11 @@ def _moe_local(xf, router, w_gate, w_up, w_down, *, cfg: ModelConfig):
         out = h @ wd_e.to(cd)  # (C+1, D)
         return out[slot] * torch.where(keep, w_te, 0.0)[:, None].to(cd)
 
-    ys = torch.stack([per_expert(w_gate[e], w_up[e], w_down[e], e)
-                      for e in range(w_gate.shape[0])])
+    # one unbind a weight: a backward through the experts' slices is one
+    # stack, not a full-size gradient a slice summed over the experts
+    ys = torch.stack([per_expert(wg, wu, wd, e) for e, (wg, wu, wd) in
+                      enumerate(zip(w_gate.unbind(0), w_up.unbind(0),
+                                    w_down.unbind(0)))])
     y = torch.sum(ys, dim=0)  # (T, D)
 
     # auxiliary losses (Switch/GShard load balancing + router z-loss)

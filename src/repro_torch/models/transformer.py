@@ -1,13 +1,15 @@
 """Model families assembled from layers/moe/mamba, all config-driven.
 
-The port of the reference package's ``repro.models.transformer``, serving
-half: the families dense (+vlm), moe, ssm (mamba2) and hybrid (zamba2).
-Every family is an ``nn.Module`` whose parameters are the reference's
-parameter tree (:class:`repro_torch.models.layers.ParamTree`: the stacked
-layer dimension is kept, ``layers.attn.wq`` is ``(L, d, q_dim)``), with the
-reference's interface less the params argument:
+The port of the reference package's ``repro.models.transformer``: the
+families dense (+vlm), moe, ssm (mamba2), hybrid (zamba2) and encdec
+(whisper).  Every family is an ``nn.Module`` whose parameters are the
+reference's parameter tree (:class:`repro_torch.models.layers.ParamTree`:
+the stacked layer dimension is kept, ``layers.attn.wq`` is
+``(L, d, q_dim)``), with the reference's interface less the params
+argument:
 
     init(generator) -> self                       # draws every parameter
+    loss(batch) -> (scalar, metrics)              # training
     prefill(batch, pad_to=None) -> (last_logits, state)
     decode_step(state, tokens) -> (logits, state)  # 1 token, O(cache)
     decode_state_specs(batch, seq_len) -> meta tensors
@@ -18,19 +20,83 @@ model's device, so a decode step never waits on the host.  A decode step
 copies the stacked KV cache once and writes each layer's k/v row into that
 copy in place, so the state it was given stays valid; the reference's
 ``cfg.decode_loop`` settings (``"scan"``, ``"fori"``) are accepted and
-both run this one loop.  Training (``loss``, ``chunked_ce_loss``, remat) and the
-encoder-decoder family wait for the training slice of the port.
+both run this one loop.
+
+Training differentiates ``loss`` with autograd; the parameters take part
+once ``requires_grad_(True)`` is called on the model.  Each layer body of
+a training trunk, and each chunk of :func:`chunked_ce_loss`, runs under
+``cfg.remat`` (:func:`_remat`); prefill and decode collect caches and
+never differentiate, so they run their bodies plainly.
 """
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import moe as MOE
-from repro_torch.models.sharding import SINGLE, MeshAxes, sc
+from repro_torch.models.sharding import _MESH_SLICE, SINGLE, MeshAxes, sc
+
+# products with no batch dimension (``x @ w`` reaches ``aten.mm``; the
+# attention's batched einsums reach ``aten.bmm``)
+_UNBATCHED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``."""
+    return (CheckpointPolicy.MUST_SAVE if op in _UNBATCHED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _save_tp_out(ctx, op, *args, **kwargs):
+    """``save_only_these_names("attn_out", "mlp_out")``: the outputs of
+    :func:`layers.checkpoint_name`, which only those two tags reach."""
+    return (CheckpointPolicy.MUST_SAVE
+            if op is torch.ops.repro_torch.checkpoint_name.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_POLICIES = {"dots": _save_dots, "tp_out": _save_tp_out}
+
+
+def _remat(f, cfg: ModelConfig):
+    """``f`` under the activation-checkpoint policy ``cfg.remat`` (the
+    reference's ``jax.checkpoint`` settings), as
+    ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``:
+
+    * ``"none"``: ``f`` itself; autograd keeps what the backward needs;
+    * ``"full"``: keep ``f``'s inputs only, run ``f`` again in the
+      backward (``jax.checkpoint(f)``);
+    * ``"dots"``: keep the outputs of products with no batch dimension
+      (``aten.mm``/``addmm``), recompute the rest
+      (``dots_with_no_batch_dims_saveable``);
+    * ``"tp_out"``: keep the outputs tagged ``attn_out``/``mlp_out`` by
+      :func:`layers._tp_out`, recompute the rest
+      (``save_only_these_names``).
+
+    Every setting gives the same values and gradients; another value
+    raises.  A trunk that collects serving caches runs its body plainly
+    instead."""
+    if cfg.remat == "none":
+        return f
+    if cfg.remat == "full":
+        context_fn = None
+    elif cfg.remat in _POLICIES:
+        context_fn = partial(create_selective_checkpoint_contexts,
+                             _POLICIES[cfg.remat])
+    else:
+        raise ValueError(f"unknown remat policy {cfg.remat!r}: none, full, "
+                         "dots or tp_out")
+
+    if context_fn is None:
+        return partial(checkpoint, f, use_reentrant=False)
+    return partial(checkpoint, f, use_reentrant=False, context_fn=context_fn)
 
 
 def _positions(cfg: ModelConfig, B: int, S: int, offset=0, device=None):
@@ -45,6 +111,57 @@ def _positions(cfg: ModelConfig, B: int, S: int, offset=0, device=None):
 def _angles(cfg: ModelConfig, positions):
     return L.rope_angles(positions, cfg.head_dim, cfg.rope_theta,
                          cfg.mrope_sections)
+
+
+def _ce_chunk_gather(hc, lc, embed, axes: MeshAxes):
+    """The loss of one sequence chunk: (sum of token losses, count of
+    labelled tokens); ``lc < 0`` marks an unlabelled position."""
+    logits = torch.einsum("bqd,vd->bqv", hc.to(torch.float32),
+                          embed.to(torch.float32))
+    logits = sc(logits, axes, "batch", None, "model")
+    lse = torch.logsumexp(logits, dim=-1)
+    mask = lc >= 0
+    lbl = torch.where(mask, lc, 0).long()
+    gold = torch.gather(logits, -1, lbl[..., None])[..., 0]
+    tok_loss = torch.where(mask, lse - gold, 0.0)
+    return torch.sum(tok_loss), torch.sum(mask.to(torch.float32))
+
+
+def _ce_chunk_vocab_parallel(hc, lc, embed, axes: MeshAxes, mesh):
+    """The reference's vocab-parallel CE runs under ``shard_map`` over the
+    model axis: it waits for the mesh slice."""
+    raise NotImplementedError(_MESH_SLICE)
+
+
+def chunked_ce_loss(h, embed, labels, cfg: ModelConfig, axes: MeshAxes,
+                    chunk: int = 512, mesh=None):
+    """Cross-entropy computed in sequence chunks so the (B, S, V) logits are
+    never materialized: each chunk's (B, chunk, V) logits live inside its
+    :func:`_remat` body (recomputed in the backward unless ``cfg.remat``
+    is ``"none"``).  ``S`` must be a multiple of ``min(chunk, S)``, as in
+    the reference."""
+    B, S, D = h.shape
+    qc = min(chunk, S)
+    n = S // qc
+    hr = h.reshape(B, n, qc, D)
+    lr = labels.reshape(B, n, qc)
+    use_vp = (cfg.ce_impl == "vocab_parallel" and axes.enabled
+              and mesh is not None and axes.model is not None)
+
+    def chunk_loss(hc, lc):
+        if use_vp:
+            return _ce_chunk_vocab_parallel(hc, lc, embed, axes, mesh)
+        return _ce_chunk_gather(hc, lc, embed, axes)
+
+    def body(carry, inp):
+        hc, lc = inp
+        ls, cnt = _remat(chunk_loss, cfg)(hc, lc)
+        return (carry[0] + ls, carry[1] + cnt), None
+
+    zero = torch.zeros((), dtype=torch.float32, device=h.device)
+    (tot, cnt), _ = L.xscan(cfg, body, (zero, zero),
+                            (hr.movedim(1, 0), lr.movedim(1, 0)))
+    return tot / torch.clamp(cnt, min=1)
 
 
 def flatten_tree(tree: dict, prefix: str = "") -> dict:
@@ -118,6 +235,11 @@ class BaseLM(L.ParamTree):
                               self._unembed_table().to(torch.float32))
         return sc(logits, self.axes, "batch", "model")
 
+    def _hidden_loss(self, h, labels):
+        h = L.rms_norm(h, self["ln_f"], self.cfg.norm_eps)
+        return chunked_ce_loss(h, self._unembed_table(), labels, self.cfg,
+                               self.axes, mesh=self.mesh)
+
     def _pos(self, S: int):
         return torch.tensor(S, dtype=torch.int32, device=self.device)
 
@@ -126,6 +248,9 @@ class BaseLM(L.ParamTree):
                                             device=self.device))
 
     # interface stubs
+    def loss(self, batch):
+        raise NotImplementedError
+
     def prefill(self, batch, pad_to: int | None = None):
         raise NotImplementedError
 
@@ -192,15 +317,22 @@ class DenseLM(BaseLM):
         p["layers"] = L.block_params(gen, cfg, cfg.num_layers)
         return p
 
-    def _trunk(self, h, angles):
+    def _trunk(self, h, angles, collect_kv: bool = False):
         cfg = self.cfg
 
-        def body(x, lp):
-            x, kv = self._attn_layer_kv(x, lp, angles)
-            hn = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-            return x + L.mlp_block(hn, lp["mlp"], cfg, self.axes), kv
+        if collect_kv:
+            def body(x, lp):
+                x, kv = self._attn_layer_kv(x, lp, angles)
+                hn = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+                return x + L.mlp_block(hn, lp["mlp"], cfg, self.axes), kv
 
-        return L.xscan(cfg, body, h, self["layers"])
+            return L.xscan(cfg, body, h, self["layers"])
+
+        def train_body(x, lp):
+            return L.transformer_block(x, lp, cfg, self.axes, angles,
+                                       causal=True), None
+
+        return L.xscan(cfg, _remat(train_body, cfg), h, self["layers"])
 
     def _inputs_to_h(self, batch):
         """Embed tokens; VLM prepends stubbed patch embeddings."""
@@ -211,12 +343,26 @@ class DenseLM(BaseLM):
             h = torch.cat([sc(pe, self.axes, "batch", None, None), h], dim=1)
         return h
 
+    def loss(self, batch):
+        cfg = self.cfg
+        h = self._inputs_to_h(batch)
+        B, S, _ = h.shape
+        angles = _angles(cfg, _positions(cfg, B, S, device=h.device))
+        h, _ = self._trunk(h, angles)
+        labels = batch["labels"]
+        if h.shape[1] != labels.shape[1]:  # vlm: no loss on patch positions
+            pad = torch.full((B, h.shape[1] - labels.shape[1]), -1,
+                             dtype=labels.dtype, device=labels.device)
+            labels = torch.cat([pad, labels], dim=1)
+        loss = self._hidden_loss(h, labels)
+        return loss, {"ce": loss}
+
     def prefill(self, batch, pad_to: int | None = None):
         cfg = self.cfg
         h = self._inputs_to_h(batch)
         B, S, _ = h.shape
         angles = _angles(cfg, _positions(cfg, B, S, device=h.device))
-        h, kv = self._trunk(h, angles)
+        h, kv = self._trunk(h, angles, collect_kv=True)
         logits = self._logits(h[:, -1])
         return logits, {"kv": self._pad_kv(kv, pad_to), "pos": self._pos(S)}
 
@@ -260,7 +406,7 @@ class MoeLM(BaseLM):
         }
         return p
 
-    def _trunk(self, h, angles):
+    def _trunk(self, h, angles, collect_kv: bool = False):
         """Returns (h, mean aux (2,) [load_balance, router_z], kv)."""
         cfg = self.cfg
 
@@ -269,18 +415,29 @@ class MoeLM(BaseLM):
             x, kv = self._attn_layer_kv(x, lp, angles)
             hn = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
             y, a = MOE.moe_ffn(hn, lp["moe"], cfg, self.axes, self.mesh)
-            return (x + y, aux + a), kv
+            return (x + y, aux + a), (kv if collect_kv else None)
 
         aux0 = torch.zeros(2, device=h.device)
-        (h, aux), kv = L.xscan(cfg, body, (h, aux0), self["layers"])
+        (h, aux), kv = L.xscan(cfg, body if collect_kv else _remat(body, cfg),
+                               (h, aux0), self["layers"])
         return h, aux / cfg.num_layers, kv
+
+    def loss(self, batch):
+        cfg = self.cfg
+        h = self._embed(batch["tokens"])
+        B, S, _ = h.shape
+        angles = _angles(cfg, _positions(cfg, B, S, device=h.device))
+        h, aux, _ = self._trunk(h, angles)
+        ce = self._hidden_loss(h, batch["labels"])
+        loss = ce + 0.01 * aux[0] + 1e-3 * aux[1]
+        return loss, {"ce": ce, "load_balance": aux[0], "router_z": aux[1]}
 
     def prefill(self, batch, pad_to: int | None = None):
         cfg = self.cfg
         h = self._embed(batch["tokens"])
         B, S, _ = h.shape
         angles = _angles(cfg, _positions(cfg, B, S, device=h.device))
-        h, _, kv = self._trunk(h, angles)
+        h, _, kv = self._trunk(h, angles, collect_kv=True)
         return (self._logits(h[:, -1]),
                 {"kv": self._pad_kv(kv, pad_to), "pos": self._pos(S)})
 
@@ -324,13 +481,26 @@ class MambaLM(BaseLM):
         p["layers"] = M.mamba_params(gen, cfg, cfg.num_layers)
         return p
 
-    def prefill(self, batch, pad_to: int | None = None):
+    def _trunk(self, h, collect_state: bool = False):
         cfg = self.cfg
+
+        def body(x, lp):
+            x, st = M.mamba_block(x, lp, cfg, self.axes)
+            return x, (st if collect_state else None)
+
+        return L.xscan(cfg, body if collect_state else _remat(body, cfg), h,
+                       self["layers"])
+
+    def loss(self, batch):
+        h = self._embed(batch["tokens"])
+        h, _ = self._trunk(h)
+        ce = self._hidden_loss(h, batch["labels"])
+        return ce, {"ce": ce}
+
+    def prefill(self, batch, pad_to: int | None = None):
         h = self._embed(batch["tokens"])
         S = h.shape[1]
-        h, (ssm, conv) = L.xscan(
-            cfg, lambda x, lp: M.mamba_block(x, lp, cfg, self.axes), h,
-            self["layers"])
+        h, (ssm, conv) = self._trunk(h, collect_state=True)
         logits = self._logits(h[:, -1])
         return logits, {"ssm": ssm, "conv": conv, "pos": self._pos(S)}
 
@@ -382,26 +552,46 @@ class HybridLM(BaseLM):
         p["shared"] = L.block_params(gen, cfg)  # unstacked = weight-shared
         return p
 
-    def _super_block(self, x, sp, angles):
+    def _super_block(self, x, sp, angles, collect: bool):
         """attn_every mamba layers then the shared attention block;
-        returns (x, ((ssm_states, conv_states), k, v))."""
+        returns (x, ((ssm_states, conv_states), k, v)) when ``collect``,
+        else (x, None)."""
         cfg = self.cfg
         shared = self["shared"]
-        x, states = L.xscan(
-            cfg, lambda x, lp: M.mamba_block(x, lp, cfg, self.axes), x, sp)
+
+        def inner(x, lp):
+            x, st = M.mamba_block(x, lp, cfg, self.axes)
+            return x, (st if collect else None)
+
+        x, states = L.xscan(cfg, inner, x, sp)
+        if not collect:
+            return L.transformer_block(x, shared, cfg, self.axes, angles,
+                                       causal=True), None
         x, kv = self._attn_layer_kv(x, shared, angles)
         hn = L.rms_norm(x, shared["ln2"], cfg.norm_eps)
         x = x + L.mlp_block(hn, shared["mlp"], cfg, self.axes)
         return x, (states, kv["k"], kv["v"])
+
+    def _trunk(self, h, angles, collect: bool = False):
+        body = partial(self._super_block, angles=angles, collect=collect)
+        return L.xscan(self.cfg, body if collect else _remat(body, self.cfg),
+                       h, self["ssm_layers"])
+
+    def loss(self, batch):
+        cfg = self.cfg
+        h = self._embed(batch["tokens"])
+        B, S, _ = h.shape
+        angles = _angles(cfg, _positions(cfg, B, S, device=h.device))
+        h, _ = self._trunk(h, angles)
+        ce = self._hidden_loss(h, batch["labels"])
+        return ce, {"ce": ce}
 
     def prefill(self, batch, pad_to: int | None = None):
         cfg = self.cfg
         h = self._embed(batch["tokens"])
         B, S, _ = h.shape
         angles = _angles(cfg, _positions(cfg, B, S, device=h.device))
-        h, (states, k, v) = L.xscan(
-            cfg, lambda x, sp: self._super_block(x, sp, angles), h,
-            self["ssm_layers"])
+        h, (states, k, v) = self._trunk(h, angles, collect=True)
         ssm, conv = states
         logits = self._logits(h[:, -1])
         kv = self._pad_kv({"k": k, "v": v}, pad_to)
@@ -446,17 +636,147 @@ class HybridLM(BaseLM):
                 "pos": torch.empty((), dtype=torch.int32, device="meta")}
 
 
+# ---------------------------------------------------------------------------
+# Encoder-decoder (whisper): bidirectional encoder over stubbed audio frames,
+# causal decoder with cross-attention.
+# ---------------------------------------------------------------------------
+
+
+class EncDecLM(BaseLM):
+    @staticmethod
+    def init_tree(cfg: ModelConfig, gen) -> dict:
+        p = BaseLM._embed_tree(cfg, gen)
+        p["enc_layers"] = L.block_params(gen, cfg, cfg.num_layers)
+        nd = cfg.num_decoder_layers
+        p["dec_layers"] = L.block_params(gen, cfg, nd)
+        p["dec_layers"]["cross"] = L.attn_params(gen, cfg, nd)
+        p["dec_layers"]["ln_x"] = L.full(gen, (nd, cfg.d_model), 1.0,
+                                         cfg.param_dtype)
+        p["ln_enc"] = L.full(gen, (cfg.d_model,), 1.0, cfg.param_dtype)
+        return p
+
+    def encode(self, audio_frames):
+        cfg = self.cfg
+        h = audio_frames.to(cfg.compute_dtype)
+        h = sc(h, self.axes, "batch", None, None)
+        B, S, _ = h.shape
+        angles = _angles(cfg, _positions(cfg, B, S, device=h.device))
+
+        def body(x, lp):
+            return (L.transformer_block(x, lp, cfg, self.axes, angles,
+                                        causal=False), None)
+
+        h, _ = L.xscan(cfg, _remat(body, cfg), h, self["enc_layers"])
+        return L.rms_norm(h, self["ln_enc"], cfg.norm_eps)
+
+    def _decoder(self, h, enc_out, angles, collect_kv: bool = False):
+        cfg = self.cfg
+
+        def body(x, lp):
+            hn = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+            q, k, v = L.project_qkv(hn, lp["attn"], cfg, self.axes, angles)
+            o = L.full_attention(q, k, v, cfg, self.axes, causal=True)
+            x = x + (o @ lp["attn"]["wo"].to(cfg.compute_dtype))
+            x = L.cross_attn_sublock(x, lp["cross"], lp["ln_x"], cfg,
+                                     self.axes, enc_out)
+            hn = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+            x = x + L.mlp_block(hn, lp["mlp"], cfg, self.axes)
+            out = ({"k": k.to(cfg.compute_dtype),
+                    "v": v.to(cfg.compute_dtype)} if collect_kv else None)
+            return x, out
+
+        return L.xscan(cfg, body if collect_kv else _remat(body, cfg), h,
+                       self["dec_layers"])
+
+    def loss(self, batch):
+        cfg = self.cfg
+        enc_out = self.encode(batch["audio_frames"])
+        h = self._embed(batch["tokens"])
+        B, S, _ = h.shape
+        angles = _angles(cfg, _positions(cfg, B, S, device=h.device))
+        h, _ = self._decoder(h, enc_out, angles)
+        ce = self._hidden_loss(h, batch["labels"])
+        return ce, {"ce": ce}
+
+    def _cross_kv(self, enc_out):
+        """Precompute per-decoder-layer cross-attention k/v from enc_out."""
+        cfg = self.cfg
+        cd = cfg.compute_dtype
+        B, S, _ = enc_out.shape
+
+        def body(_, lp):
+            k = (enc_out @ lp["wk"].to(cd)).reshape(
+                B, S, cfg.num_kv_heads, cfg.head_dim)
+            v = (enc_out @ lp["wv"].to(cd)).reshape(
+                B, S, cfg.num_kv_heads, cfg.head_dim)
+            return None, {"k": k, "v": v}
+
+        _, enc_kv = L.xscan(cfg, body, None, self["dec_layers"]["cross"])
+        return enc_kv
+
+    def prefill(self, batch, pad_to: int | None = None):
+        cfg = self.cfg
+        enc_out = self.encode(batch["audio_frames"])
+        h = self._embed(batch["tokens"])
+        B, S, _ = h.shape
+        angles = _angles(cfg, _positions(cfg, B, S, device=h.device))
+        h, kv = self._decoder(h, enc_out, angles, collect_kv=True)
+        logits = self._logits(h[:, -1])
+        return logits, {"kv": self._pad_kv(kv, pad_to),
+                        "enc_kv": self._cross_kv(enc_out),
+                        "pos": self._pos(S)}
+
+    def decode_step(self, state, tokens):
+        cfg = self.cfg
+        cd = cfg.compute_dtype
+        h = self._embed(tokens[:, None])
+        pos = state["pos"]
+        Smax = state["kv"]["k"].shape[2]
+        write_pos = torch.clamp(pos, max=Smax - 1)
+        angles = self._decode_angles(h.shape[0], pos)
+
+        def body(x, inp, cache):
+            lp, enc_kv = inp
+            hn = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+            q, k, v = L.project_qkv(hn, lp["attn"], cfg, self.axes, angles)
+            ck = L.cache_write(cache["k"], k, write_pos)
+            cv = L.cache_write(cache["v"], v, write_pos)
+            o = L.decode_attention(q, ck, cv, write_pos + 1, cfg, self.axes)
+            x = x + (o @ lp["attn"]["wo"].to(cd))
+            x = L.cross_block_decode(
+                x, {"ln1": lp["ln_x"], "attn": lp["cross"]}, cfg, self.axes,
+                enc_kv)
+            hn = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+            x = x + L.mlp_block(hn, lp["mlp"], cfg, self.axes)
+            return x, None
+
+        dl = self["dec_layers"]
+        lp_only = {k: dl[k] for k in ("attn", "mlp", "ln1", "ln2", "cross",
+                                      "ln_x")}
+        h, _, kv = self._decode_layers(body, h, (lp_only, state["enc_kv"]),
+                                       state["kv"])
+        logits = self._logits(h[:, 0])
+        return logits, {"kv": kv, "enc_kv": state["enc_kv"], "pos": pos + 1}
+
+    def decode_state_specs(self, batch: int, seq_len: int):
+        cfg = self.cfg
+        return {
+            "kv": self.kv_cache_specs(cfg.num_decoder_layers, batch,
+                                      seq_len),
+            "enc_kv": self.kv_cache_specs(cfg.num_decoder_layers, batch,
+                                          cfg.num_audio_frames),
+            "pos": torch.empty((), dtype=torch.int32, device="meta"),
+        }
+
+
 FAMILIES = {
     "dense": DenseLM,
     "vlm": DenseLM,
     "moe": MoeLM,
     "ssm": MambaLM,
     "hybrid": HybridLM,
+    "encdec": EncDecLM,
 }
-
-_ENCDEC = ("the encoder-decoder family (EncDecLM) is not ported yet: it "
-           "comes with the training slice of the port (ROADMAP.md queue 1, "
-           "item 7a)")
 
 
 def build_model(cfg: ModelConfig, axes: MeshAxes | None = None, mesh=None,
@@ -464,10 +784,7 @@ def build_model(cfg: ModelConfig, axes: MeshAxes | None = None, mesh=None,
     """The family's model with its parameters allocated, not drawn, on
     ``device`` (``"meta"``: shapes only); draw them with
     ``model.init(generator)`` or load them with ``models.carry``."""
-    if cfg.family == "encdec":
-        raise NotImplementedError(_ENCDEC)
     if axes is not None and axes.enabled:
-        from repro_torch.models.sharding import _MESH_SLICE  # noqa: PLC0415
         raise NotImplementedError(_MESH_SLICE)
     model = FAMILIES[cfg.family](cfg, axes, mesh)
     if torch.device(device).type == "meta":

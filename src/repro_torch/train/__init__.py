@@ -1,2 +1,2 @@
-"""Serving on the port's models (prefill, decode step, sampling); the
-training loop and pipeline wait for the training slice."""
+"""Serving (prefill, decode step, sampling) and the training step on the
+port's models; the pipeline-parallel schedule waits for the mesh slice."""

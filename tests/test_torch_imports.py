@@ -66,7 +66,10 @@ def test_package_has_the_slice_modules():
                  "analysis.wave_report", "analysis.roofline",
                  "models.sharding", "models.layers", "models.moe",
                  "models.transformer", "models.model", "models.carry",
-                 "train", "train.serve"):
+                 "train", "train.serve", "tree_util", "optim",
+                 "optim.adamw", "optim.compression", "data", "data.pipeline",
+                 "checkpoint", "checkpoint.checkpoint", "train.train_loop",
+                 "launch", "launch.train"):
         assert f"repro_torch.{name}" in mods, name
 
 
@@ -151,7 +154,8 @@ def test_sources_never_mention_the_reference_package_in_imports():
     entry_points = [SRC.parent / f for f in (
         "chip_smoke.py", "scripts/analyze_torch.py",
         "examples/serve_models_torch.py", "examples/quickstart_torch.py",
-        "examples/export_models_torch.py", "examples/serve_batched_torch.py")]
+        "examples/export_models_torch.py", "examples/serve_batched_torch.py",
+        "examples/train_100m_torch.py")]
     for path in [*root.rglob("*.py"), *entry_points]:
         for line in path.read_text().splitlines():
             s = line.strip()

@@ -4,8 +4,9 @@ CPU: ``transformer_block``, ``mlp_block`` (both MLP kinds) and
 dropped past capacity, M-RoPE on three distinct position streams, the
 analytic roofline counters, the parameter paths and the decode-state and
 input specs of every config, ``init`` from a ``torch.Generator``, and what
-raises because it waits for a later slice (the encoder-decoder family, the
-mesh path).  The whole-model comparisons are in ``test_torch_models.py``,
+raises because it waits for a later slice (the mesh path: sharded
+activations and experts, the vocab-parallel cross-entropy, the int8
+all-gather sum, a mesh given to the trainer).  The whole-model comparisons are in ``test_torch_models.py``,
 whose helpers and tolerances (stated there) these tests share.
 """
 import jax
@@ -115,7 +116,7 @@ def test_blocks_match_the_reference(mlp_kind, dtype):
     xr, xp = jnp.asarray(x, rcfg.compute_dtype), torch.from_numpy(x).to(
         pcfg.compute_dtype)
     lr = jax.tree.map(lambda a: a[0], params["layers"])
-    lp = PL.tree_index(port["layers"], 0)
+    lp = PL.tree_unbind(port["layers"], port.cfg.num_layers)[0]
     pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S))
     ar = RL.rope_angles(jnp.asarray(pos), rcfg.head_dim, rcfg.rope_theta)
     ap = PL.rope_angles(torch.from_numpy(pos.copy()), pcfg.head_dim,
@@ -130,7 +131,7 @@ def test_blocks_match_the_reference(mlp_kind, dtype):
     m_ref, m_params, m_port = _pair("phi3_5_moe_42b", dtype,
                                     capacity_factor=0.5)
     mr = jax.tree.map(lambda a: a[0], m_params["layers"])
-    mp = PL.tree_index(m_port["layers"], 0)
+    mp = PL.tree_unbind(m_port["layers"], m_port.cfg.num_layers)[0]
     mcfg_r, mcfg_p = m_ref.cfg, m_port.cfg
     xm = x[..., :mcfg_r.d_model]
     ar = RL.rope_angles(jnp.asarray(pos), mcfg_r.head_dim, 1e4)
@@ -203,8 +204,9 @@ def test_init_draws_from_the_generator():
 
 
 def test_what_waits_for_later_slices_raises():
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        PMF.build_model(p_load("whisper_medium", smoke=True), device="meta")
+    from repro_torch.launch.train import train
+    from repro_torch.models.transformer import _ce_chunk_vocab_parallel
+    from repro_torch.optim import compression as PCOMP
     sharded = PSH.MeshAxes(batch=("data",), model="model", enabled=True)
     with pytest.raises(NotImplementedError, match="mesh"):
         PSH.sc(torch.zeros(2), sharded, "batch")
@@ -218,6 +220,15 @@ def test_what_waits_for_later_slices_raises():
     with pytest.raises(NotImplementedError, match="mesh"):
         PMF.build_model(p_load("minitron_8b", smoke=True), sharded,
                         device="meta")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        _ce_chunk_vocab_parallel(None, None, None, sharded, object())
+    with pytest.raises(NotImplementedError, match="mesh"):
+        PCOMP.psum_int8(torch.ones(3), "pod")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        PCOMP.compressed_psum_tree({"g": torch.ones(3)}, "pod")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        train(p_load("smollm_360m", smoke=True), P_SHAPES["train_4k"],
+              steps=1, mesh=object(), device="cpu")
     x = torch.ones(3)
     assert PSH.sc(x, PSH.SINGLE, "batch") is x
 

@@ -4,9 +4,9 @@
 Weights are the reference's: ``model.init(PRNGKey)`` in JAX, carried
 across by ``models/carry.py`` (``jax.random`` and ``torch.Generator`` draw
 different numbers, so two inits are never compared).  Inputs are made with
-numpy from fixed seeds.  Every family of the serving slice runs at its
-smoke config (``ARCH_IDS`` less the encoder-decoder ``whisper_medium``,
-which waits for the training slice): prefill logits and state, then three
+numpy from fixed seeds.  Every config runs at its smoke config
+(``ARCH_IDS``, the encoder-decoder ``whisper_medium`` on random audio
+frames beside its tokens): prefill logits and state, then three
 decode steps fed the same tokens on both sides; decoding past the cache;
 greedy ``generate`` ids against the reference's ``generate``.  Port-only
 properties: both ``decode_loop`` settings give the same values, a decode
@@ -40,9 +40,9 @@ from repro_torch.configs.base import load_config as p_load
 from repro_torch.models.carry import params_from_reference
 from repro_torch.train import serve as p_serve
 
-ARCHS = [a for a in ARCH_IDS if a != "whisper_medium"]
+ARCHS = list(ARCH_IDS)
 FAMILY_ARCHS = ["smollm_360m", "qwen2_vl_2b", "phi3_5_moe_42b",
-                "mamba2_2_7b", "zamba2_2_7b"]
+                "mamba2_2_7b", "zamba2_2_7b", "whisper_medium"]
 B, S = 2, 24          # 24 positions: two SSD chunks of 16, the second padded
 PAD = 4               # decode headroom past the prefill
 F32_TOL = 1e-5
@@ -80,6 +80,11 @@ def _batch(cfg, seed=1, seq=S):
               * 0.5).astype(np.float32)
         rb["patch_embeds"] = jnp.asarray(pe)
         pb["patch_embeds"] = torch.from_numpy(pe)
+    if cfg.family == "encdec":
+        af = (rng.standard_normal((B, cfg.num_audio_frames, cfg.d_model))
+              * 0.5).astype(np.float32)
+        rb["audio_frames"] = jnp.asarray(af)
+        pb["audio_frames"] = torch.from_numpy(af)
     return rb, pb
 
 
