@@ -82,6 +82,17 @@ drives the port's paths on the card:
   Whisper-medium train 2 steps each at full width, depth cut, and one
   f32 backward of every family equals the CPU's.  No kernel of the port
   is on this path either.
+* **the mesh** (``launch/mesh.py``, ``models/sharding.py``,
+  ``train/pipeline.py``).  One NCCL rank (``make_host_mesh(1, 1)``: one
+  H100, so N > 1 runs only in the CPU tests, over gloo): SmolLM-360M uncut
+  trained sharded through ``launch.train.train(mesh=)`` for 5 steps, its
+  losses against the training phase's first 5, a checkpoint at step 3 and
+  a resumed run bit-identical to the uninterrupted one, the sharded
+  step's ms and kernels beside the unsharded step's; a sequence-sharded
+  decode step, the vocab-parallel CE at SmolLM's vocabulary, ``psum_int8``,
+  a one-stage pipeline and Phi-3.5-MoE's expert-parallel loss and
+  gradients (2 layers, full width) against their local versions.  The
+  regions are PyTorch plus NCCL collectives: no kernel of the port.
 
 Every phase prints a line; any failure exits non-zero and prints no
 result.  The last three lines are the card's name and power limit, the
@@ -2196,6 +2207,334 @@ def _train_family(arch, cut, B, S, smi):
                          "layers": layers}, "card": smi}
 
 
+# -------------------------------------------------------------------- mesh
+# The mesh on one card: a one-rank NCCL group (make_host_mesh(1, 1)), so
+# every parameter is a DTensor and every region runs its collectives over
+# one rank.  N > 1 is exercised by the CPU tests only (gloo ranks,
+# tests/test_torch_mesh_*.py): the card's host has one H100.
+MESH_STEPS, MESH_CKPT_AT = 5, 3
+MESH_TIMED_STEPS = 3      # synchronised sharded steps, their median reported
+MESH_MOE = ("phi3_5_moe_42b", {"num_layers": 2}, 2, 256)
+MESH_PIPE = (8, 4, 960)   # layers, microbatches, width (SmolLM's d_model)
+MESH_PSUM_ELEMS = 1 << 22
+MESH_DECODE_TOL = 1e-4    # tests/test_torch_mesh_collectives.py's bound
+MESH_VP_TOL = 1e-4        # tests/test_torch_mesh_moe.py's bound
+MESH_PIPE_TOL = 1e-5      # tests/test_torch_mesh_collectives.py's bound
+
+
+def _local_twin(model):
+    """The unsharded model over a one-rank mesh model's own storage (each
+    DTensor's local tensor is the whole tensor)."""
+    from repro_torch.models.model import build_model
+    twin = build_model(model.cfg, device="meta")
+    twin.load_state_dict({n: p.to_local() for n, p in
+                          model.named_parameters()}, strict=True,
+                         assign=True)
+    return twin
+
+
+def _max_rel(got: dict, want: dict):
+    """The worst leaf's max |got - want| over its max |want|, and which."""
+    return max((float((got[k].to_local() if hasattr(got[k], "to_local")
+                       else got[k]).sub(want[k]).abs().max()) /
+                max(float(want[k].abs().max()), 1e-30), k) for k in want)
+
+
+def phase_mesh(smi, training):
+    """The mesh path on the card, through its entry points, on one NCCL
+    rank (``make_host_mesh(1, 1)``): SmolLM-360M uncut trained sharded
+    through ``launch.train.train(mesh=)`` (its losses against the
+    unsharded [train] run's first steps, a checkpoint at step
+    ``MESH_CKPT_AT`` and a resume bit-identical to the uninterrupted run,
+    the sharded step's time and kernels beside the unsharded step's); the
+    expert-parallel MoE against the local path (Phi-3.5-MoE at 2 layers,
+    full width, loss and gradients); the vocab-parallel CE at SmolLM's
+    vocabulary against the gather CE; ``psum_int8`` against
+    ``roundtrip_int8``; ``pipeline_apply`` with one stage against the
+    sequential stack; a sequence-sharded SmolLM decode step against the
+    unsharded one.  The group is destroyed at the end."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import ShapeSpec, load_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.launch.mesh import make_host_mesh, set_mesh
+    from repro_torch.launch.train import train
+    from repro_torch.models import model as MF
+    from repro_torch.models import transformer as T
+    from repro_torch.models.sharding import P, distribute
+    from repro_torch.optim import adamw, compression
+    from repro_torch.train.pipeline import pipeline_apply, split_stages
+    from repro_torch.train.train_loop import make_train_step
+    from repro_torch.tree_util import tree_leaves
+
+    t_phase = time.perf_counter()
+    card = torch.device("cuda:0")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh = make_host_mesh(1, 1)
+    probe = torch.ones(1, device=card)
+    dist.all_reduce(probe)   # NCCL makes its communicator on first use
+    torch.cuda.synchronize()
+    startup_s = time.perf_counter() - t0
+    require(float(probe) == 1.0, "a one-rank all_reduce changed its input")
+    log(f"[mesh] one-rank NCCL group and a (data=1, model=1) mesh on "
+        f"{torch.cuda.get_device_name(0)}: {startup_s:.2f} s to the first "
+        f"all_reduce (one H100: N > 1 runs only in the CPU tests, over gloo)")
+    out = {"nccl_startup_s": startup_s, "card": smi}
+
+    # SmolLM-360M uncut, sharded through the trainer's entry point
+    cfg = load_config(TRAIN_ARCH)
+    shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    opt = adamw.AdamWConfig(**TRAIN_OPT)
+
+    def run(steps, ckpt_dir, lines):
+        return train(cfg, shape, steps=steps, opt_cfg=opt, mesh=mesh,
+                     ckpt_dir=ckpt_dir, ckpt_interval=MESH_CKPT_AT,
+                     log_every=1, log_fn=lines.append, seed=TRAIN_SEED,
+                     device=card)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        t0 = time.perf_counter()
+        model, state, losses = run(MESH_STEPS, None, [])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        want = [l for _, l in training["losses"][:MESH_STEPS]]
+        got = [l for _, l in losses]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        require(len(got) == MESH_STEPS and loss_rel <= TRAIN_LOSS_REL,
+                f"sharded losses {got} against unsharded {want}")
+        require(all(isinstance(p, torch.distributed.tensor.DTensor)
+                    for p in tree_leaves((model, state))),
+                "a parameter or moment is not a DTensor")
+        log(f"[mesh] {cfg.name} uncut through launch.train.train(mesh=): "
+            f"{MESH_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} in "
+            f"{run_s:.1f} s (init and the first step's DTensor sharding "
+            f"propagation included); losses {[round(l, 4) for l in got]}, "
+            f"the unsharded [train] run's first {MESH_STEPS} "
+            + ("bit-identical" if got == want else
+               f"within {loss_rel:.3g} (rel, tol {TRAIN_LOSS_REL})"))
+        # a checkpoint at step MESH_CKPT_AT, then a run resumed from it
+        ckpt_dir = Path(tmp) / "ckpt"
+        t0 = time.perf_counter()
+        m_a, s_a, l_a = run(MESH_CKPT_AT, ckpt_dir, [])
+        require([l for _, l in l_a] == got[:MESH_CKPT_AT],
+                f"a second sharded run's losses {l_a} differ from {got}")
+        del m_a, s_a
+        save_s = time.perf_counter() - t0
+        lines = []
+        t0 = time.perf_counter()
+        m_b, s_b, l_b = run(MESH_STEPS, ckpt_dir, lines)
+        resume_s = time.perf_counter() - t0
+        require(lines and lines[0] == f"[train] resumed from step "
+                f"{MESH_CKPT_AT}", f"the run did not resume: {lines[:1]}")
+        pairs = list(zip(tree_leaves((model, state)),
+                         tree_leaves((m_b, s_b))))
+        identical = all(torch.equal(a.to_local(), b.to_local())
+                        for a, b in pairs)
+        worst = max(float((a.to_local().float() - b.to_local().float())
+                          .abs().max()) for a, b in pairs)
+        require(identical, f"the resumed sharded run differs from the "
+                f"uninterrupted one by {worst:.3g}")
+        require([l for _, l in l_b] == got[MESH_CKPT_AT:],
+                f"resumed losses {l_b} against {got[MESH_CKPT_AT:]}")
+        log(f"[mesh] {cfg.name}: {MESH_CKPT_AT} sharded steps and their "
+            f"checkpoint (gathered leaves, rank 0 writes, barrier) in "
+            f"{save_s:.1f} s; resumed at step {MESH_CKPT_AT} to "
+            f"{MESH_STEPS} in {resume_s:.1f} s (restore, steps, the last "
+            f"save): params and AdamW state bit-identical to the "
+            f"uninterrupted sharded run ({len(pairs)} leaves)")
+        del m_b, s_b
+
+    # the sharded step's time and kernels beside the unsharded step's
+    step_fn = make_train_step(model, opt)
+    data = MF.input_pspecs(cfg, shape, model.axes)
+    pipe = SyntheticTokens(cfg, shape, DataConfig(
+        seed=TRAIN_SEED, vocab_size=min(cfg.vocab_size, 512)), device=card)
+
+    def batch_at(i):
+        return {k: distribute(v, mesh, data[k], src_data_rank=None)
+                for k, v in pipe.batch_at(MESH_STEPS + i).items()}
+
+    times = []
+    for i in range(MESH_TIMED_STEPS):
+        batch = batch_at(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, state, metrics = step_fn(model, state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_ms = 1e3 * _median(times)
+    batches = [batch_at(MESH_TIMED_STEPS + i)
+               for i in range(PROFILED_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for batch in batches:
+            _, state, metrics = step_fn(model, state, batch)
+        torch.cuda.synchronize()
+    busy_s, kernels = _device_busy(prof)
+    require(bool(torch.isfinite(metrics["loss"].to_local())),
+            "a timed sharded step's loss is not finite")
+    kernels = None if kernels is None else kernels / PROFILED_TRAIN_STEPS
+    busy = (None if busy_s is None else
+            busy_s / (PROFILED_TRAIN_STEPS * step_ms / 1e3))
+    plain_k = training.get("kernels_per_step")
+    log(f"[mesh] {cfg.name}: {step_ms:.1f} ms a sharded train step (median "
+        f"of {MESH_TIMED_STEPS} synchronised, {min(times) * 1e3:.1f}-"
+        f"{max(times) * 1e3:.1f}) against {training['step_ms']:.1f} ms "
+        f"unsharded in [train] ({step_ms / training['step_ms']:.2f}x: "
+        f"DTensor's dispatch on every op); "
+        + ("no device time recorded" if kernels is None else
+           f"{kernels:.0f} kernels a step (unsharded "
+           f"{plain_k if plain_k is None else round(plain_k)}), device busy "
+           f"{100 * busy:.1f}% of a step") + f" ({smi})")
+    out.update(arch=TRAIN_ARCH, steps=MESH_STEPS, losses=got,
+               loss_max_rel=loss_rel, losses_bit_identical=got == want,
+               run_s=run_s, save_s=save_s, resume_s=resume_s,
+               resume_bit_identical=identical, step_ms=step_ms,
+               step_runs_ms=[1e3 * t for t in times],
+               unsharded_step_ms=training["step_ms"],
+               kernels_per_step=kernels, unsharded_kernels_per_step=plain_k,
+               device_busy_share=busy)
+    del step_fn, metrics, batches, prof
+
+    # a sequence-sharded decode step against the unsharded one (f32)
+    f32 = cfg.replace(compute_dtype=torch.float32)
+    axes = MF.make_axes(mesh, kv_partition="seq")
+    dec = MF.build_model(f32, axes, mesh, device="meta")
+    dec.load_state_dict({n: p for n, p in model.named_parameters()},
+                        strict=True, assign=True)
+    plain = _local_twin(dec)
+    gen = torch.Generator(device=card).manual_seed(TRAIN_SEED)
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                           generator=gen, device=card)
+    nxt = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH,), generator=gen,
+                        device=card)
+    with torch.no_grad():
+        _, st = plain.prefill({"tokens": tokens}, pad_to=TRAIN_SEQ + 8)
+        want_logits, _ = plain.decode_step(st, nxt)
+        got_logits, got_st = dec.decode_step(st, nxt)
+    dec_err = float((got_logits.to_local() - want_logits).abs().max())
+    require(dec_err <= MESH_DECODE_TOL * max(
+        1.0, float(want_logits.abs().max())),
+        f"sequence-sharded decode differs by {dec_err:.3g}")
+    log(f"[mesh] {cfg.name}: a decode step with the KV cache sharded on its "
+        f"sequence (kv_partition seq, flash-decoding region) against the "
+        f"unsharded step, f32, {TRAIN_BATCH} x {TRAIN_SEQ} cached: max "
+        f"|d logits| {dec_err:.3g} (tol {MESH_DECODE_TOL} x max(1, |logits|))")
+    out["decode_max_abs"] = dec_err
+    del dec, plain, st, got_st, want_logits, got_logits
+
+    # the vocab-parallel CE at SmolLM's vocabulary against the gather CE
+    vp_cfg = f32.replace(ce_impl="vocab_parallel",
+                         embed_sharding="model_only")
+    h = torch.randn(TRAIN_BATCH, TRAIN_SEQ, cfg.d_model, generator=gen,
+                    device=card)
+    table = (0.02 * torch.randn(cfg.vocab_padded, cfg.d_model,
+                                generator=gen, device=card))
+    labels = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                           generator=gen, device=card)
+    labels[:, :4] = -1      # unlabelled positions
+    ce = {}
+    for c in (f32, vp_cfg):
+        ax = MF.make_axes(mesh)
+        hd = distribute(h, mesh, P(ax.bspec, None, None)).requires_grad_()
+        td = distribute(table, mesh, MF.param_pspecs({"embed": table},
+                                                     c)["embed"])
+        td.requires_grad_()
+        ld = distribute(labels, mesh, P(ax.bspec, None))
+        loss = T.chunked_ce_loss(hd, td, ld, c, ax, mesh=mesh)
+        gh, gt = torch.autograd.grad(loss, (hd, td))
+        ce[c.ce_impl] = (float(loss.to_local()), gh.to_local(),
+                         gt.to_local())
+    (lg, ghg, gtg), (lv, ghv, gtv) = ce["gather"], ce["vocab_parallel"]
+    vp_loss = abs(lv - lg)
+    vp_grad, _ = _max_rel({"h": ghv, "embed": gtv}, {"h": ghg, "embed": gtg})
+    require(vp_loss < MESH_VP_TOL and vp_grad < MESH_VP_TOL,
+            f"vocab-parallel CE off the gather CE by {vp_loss:.3g} (loss), "
+            f"{vp_grad:.3g} (gradients)")
+    log(f"[mesh] vocab-parallel CE at {cfg.vocab_padded} entries, "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}, f32: loss {lv:.6f} against the gather "
+        f"CE's {lg:.6f} (|d| {vp_loss:.3g}), gradients {vp_grad:.3g} of a "
+        f"leaf's largest (tol {MESH_VP_TOL})")
+    out["vp_ce"] = {"loss_abs": vp_loss, "grad_rel": vp_grad}
+    del model, state, h, table, ce, ghg, gtg, ghv, gtv
+
+    # psum_int8 over one rank is the int8 round trip
+    x = torch.randn(MESH_PSUM_ELEMS, generator=gen, device=card)
+    with set_mesh(mesh):
+        summed = compression.psum_int8(x, "data")
+    require(torch.equal(summed, compression.roundtrip_int8(x)),
+            "psum_int8 over one rank differs from roundtrip_int8")
+    log(f"[mesh] psum_int8 of {MESH_PSUM_ELEMS} f32 values over a one-rank "
+        f"axis: bit-identical to roundtrip_int8")
+
+    # the GPipe pipeline with one stage against the sequential stack
+    n_layers, n_micro, width = MESH_PIPE
+    layers = {"w": torch.randn(n_layers, width, width, generator=gen,
+                               device=card) * width ** -0.5,
+              "b": 0.1 * torch.randn(n_layers, width, generator=gen,
+                                     device=card)}
+    xs = torch.randn(n_micro, TRAIN_BATCH, width, generator=gen, device=card)
+
+    def stack(params, x):
+        for w, b in zip(params["w"].unbind(0), params["b"].unbind(0)):
+            x = torch.tanh(x @ w + b)
+        return x
+
+    got_pipe = pipeline_apply(stack, split_stages(layers, 1), xs, mesh,
+                              axis="data").to_local()
+    want_pipe = torch.stack([stack(layers, x) for x in xs])
+    pipe_err = float((got_pipe - want_pipe).abs().max())
+    require(pipe_err <= MESH_PIPE_TOL, f"the one-stage pipeline differs by "
+            f"{pipe_err:.3g}")
+    log(f"[mesh] pipeline_apply, 1 stage x {n_layers} layers, {n_micro} "
+        f"microbatches of {TRAIN_BATCH} x {width}: max |d| {pipe_err:.3g} "
+        f"against the sequential stack (tol {MESH_PIPE_TOL})")
+    out["psum_int8_bit_identical"] = True
+    out["pipeline_max_abs"] = pipe_err
+    del layers, xs, got_pipe, want_pipe, x, summed
+    torch.cuda.empty_cache()
+
+    # expert parallelism against the local path (Phi-3.5-MoE, full width)
+    arch, cut, B, S = MESH_MOE
+    mcfg = load_config(arch).replace(**cut)
+    maxes = MF.axes_for(mcfg, ShapeSpec("t", S, B, "train"), mesh)
+    moe = MF.build_model(mcfg, maxes, mesh, device=card).init(
+        torch.Generator(device=card).manual_seed(TRAIN_SEED))
+    local = _local_twin(moe)
+    batch = _train_batch(mcfg, B, S, card)
+    t0 = time.perf_counter()
+    l_ep, g_ep = _loss_grads(moe, batch)
+    ep_s = time.perf_counter() - t0
+    g_ep = {k: v.to_local() for k, v in g_ep.items()}
+    t0 = time.perf_counter()
+    l_loc, g_loc = _loss_grads(local, batch)
+    loc_s = time.perf_counter() - t0
+    moe_loss = abs(l_ep - l_loc) / abs(l_loc)
+    moe_grad, leaf = _max_rel(g_ep, g_loc)
+    require(moe_loss <= TRAIN_LOSS_REL and moe_grad <= TRAIN_GRAD_REL,
+            f"expert-parallel MoE off the local path: loss {moe_loss:.3g}, "
+            f"gradients {moe_grad:.3g} ({leaf})")
+    log(f"[mesh] {mcfg.name} ({cut['num_layers']} layers, full width, bf16 "
+        f"compute) expert-parallel against local, {B} x {S}: loss "
+        f"{l_ep:.6f} / {l_loc:.6f} (rel {moe_loss:.3g}), gradients "
+        f"{moe_grad:.3g} of a leaf's largest; loss and backward "
+        f"{ep_s:.1f} s sharded, {loc_s:.1f} s local")
+    out["moe"] = {"arch": arch, "loss_rel": moe_loss, "grad_rel": moe_grad,
+                  "sharded_s": ep_s, "local_s": loc_s}
+    del moe, local, g_ep, g_loc, batch
+    torch.cuda.empty_cache()
+
+    dist.destroy_process_group()
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[mesh] phase wall {out['wall_s']:.1f} s; the group destroyed")
+    return out
+
+
 # --------------------------------------------------------- unit blockers
 UNITS = ("MXU", "VPU", "SFU", "LSU")
 # rows of 128 f32 that fill the card: 132 SMs x 2,048 resident threads
@@ -3037,6 +3376,7 @@ def main():
     del ops_inputs
     model_serving = phase_models(smi)
     training = phase_train(smi)
+    meshed = phase_mesh(smi, training)
     big = timing["largest"]
     report = {"kernels": [{
         "name": "wave_dispatch", "route": "cuda",
@@ -3114,6 +3454,7 @@ def main():
     report["trace_report"] = trace_report
     report["models"] = model_serving
     report["train"] = training
+    report["mesh"] = meshed
     print(smi, flush=True)
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -22,6 +22,12 @@ package's own string, and neither restore reads it.
 The (leaf, chunk) files are compressed and decompressed by a pool of
 threads (zlib and zstd release the interpreter lock), with the same bytes
 as one thread would write.
+
+A sharded tree (DTensor leaves, on a mesh) is saved in the same format:
+every rank gathers each leaf whole (``full_tensor()``), rank 0 writes, and
+every rank then waits at a barrier, so the files a rank goes on to read
+exist.  On restore each rank reads the whole leaves and places each as
+its ``like_tree`` leaf is placed.
 """
 from __future__ import annotations
 
@@ -35,6 +41,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.tree_util import tree_flatten, tree_unflatten, treedef_str
 
@@ -80,6 +88,8 @@ def _to_host(leaf) -> _HostLeaf:
     its uint16 bits."""
     if isinstance(leaf, _HostLeaf):
         return leaf
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()  # a collective: every rank gathers
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
@@ -96,15 +106,34 @@ def _to_host(leaf) -> _HostLeaf:
 def snapshot(tree):
     """``tree`` with every leaf copied to host memory now: what
     :func:`save_checkpoint` writes, whatever later happens to the
-    tensors."""
+    tensors.  A DTensor leaf is gathered whole, so on a mesh every rank
+    takes the snapshot together."""
     leaves, treedef = tree_flatten(tree)
     return tree_unflatten(treedef, [_to_host(l) for l in leaves])
+
+
+def _sharded(tree) -> bool:
+    return any(isinstance(l, DTensor) for l in tree_flatten(tree)[0])
+
+
+def _writer() -> bool:
+    """True on the rank that writes a sharded tree's files (rank 0)."""
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def save_checkpoint(directory, step: int, tree, *, chunks: int = 1,
                     metadata: dict | None = None) -> Path:
     """Synchronous save. ``chunks``: shards per leaf along axis 0 (leaves
-    with axis0 % chunks != 0 or scalars are stored unchunked)."""
+    with axis0 % chunks != 0 or scalars are stored unchunked).  A sharded
+    tree is saved by every rank together (see the module docstring)."""
+    if _sharded(tree):
+        host = snapshot(tree)
+        final = Path(directory) / f"{step:08d}.ckpt"
+        if _writer():
+            final = save_checkpoint(directory, step, host, chunks=chunks,
+                                    metadata=metadata)
+        dist.barrier()
+        return final
     directory = Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
     final = directory / f"{step:08d}.ckpt"
@@ -166,7 +195,8 @@ def restore_checkpoint(path, like_tree, *, shard_index: int = 0,
     need not match num_shards).  Returns (step, tree, metadata): ``tree``
     has ``like_tree``'s structure (a model in it comes back as the nested
     dict of its parameters) and tensor leaves, each on the device of its
-    ``like_tree`` leaf where that is a tensor, else on the CPU."""
+    ``like_tree`` leaf where that is a tensor, else on the CPU; a DTensor
+    ``like_tree`` leaf gives a DTensor placed as it is."""
     path = Path(path)
     manifest = json.loads((path / "manifest.json").read_text())
     codec = manifest.get("codec", "zstd")  # pre-codec checkpoints were zstd
@@ -191,7 +221,10 @@ def restore_checkpoint(path, like_tree, *, shard_index: int = 0,
         if num_shards > 1 and t.dim() > 0 and t.shape[0] % num_shards == 0:
             n = t.shape[0] // num_shards
             t = t[shard_index * n:(shard_index + 1) * n]
-        if isinstance(like, torch.Tensor):
+        if isinstance(like, DTensor):
+            t = distribute_tensor(t.to(like.device), like.device_mesh,
+                                  like.placements, src_data_rank=None)
+        elif isinstance(like, torch.Tensor):
             t = t.to(like.device)
         out.append(t)
     tree = tree_unflatten(treedef, out)
@@ -208,7 +241,12 @@ def latest_checkpoint(directory) -> Path | None:
 
 
 class CheckpointManager:
-    """Periodic async checkpoints with retention, for the training loop."""
+    """Periodic async checkpoints with retention, for the training loop.
+
+    A sharded tree's snapshot is gathered by every rank; rank 0 writes it
+    on its thread, and :meth:`wait` (which every rank reaches at the same
+    points: the next save, a restore, the end of a run) then holds every
+    rank at a barrier until the files exist."""
 
     def __init__(self, directory, *, interval: int = 100, keep: int = 3,
                  chunks: int = 1):
@@ -218,6 +256,7 @@ class CheckpointManager:
         self.chunks = chunks
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
+        self._barrier = False
 
     def maybe_save(self, step: int, tree, metadata=None, *,
                    force: bool = False):
@@ -226,7 +265,10 @@ class CheckpointManager:
         self.wait()
         # snapshot copies on the caller's thread: the next training step
         # updates the parameters and the optimizer state in place
+        self._barrier = _sharded(tree)
         host = snapshot(tree)
+        if not _writer():
+            return True
 
         def work():
             try:
@@ -244,6 +286,9 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            self._barrier = False
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err

@@ -1,10 +1,15 @@
 """Training driver: data pipeline → train step → checkpoints →
-fault-tolerance hooks, on one device.
+fault-tolerance hooks, on one device or on a mesh (mesh/axes are
+injected).
 
 The port of the reference package's ``repro.launch.train``.  It runs on
 the card by default (``device="cuda"``) and on the CPU when asked
-(``device="cpu"``, as the tests do); the sharded mesh path waits for the
-mesh slice of the port and raises.
+(``device="cpu"``, as the tests do).  With ``mesh`` (a
+``launch.mesh.make_host_mesh``/``make_production_mesh`` mesh, every rank
+of the process group calling ``train`` alike) the model is built by
+``axes_for``, its parameters and AdamW ``mu``/``nu`` are DTensors placed by
+``param_pspecs``, the step is replicated and each synthetic batch is
+sharded by ``input_pspecs``.
 
 CLI (examples/train_100m_torch.py wraps ``train``):
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm_360m \\
@@ -22,8 +27,8 @@ from repro_torch.checkpoint.checkpoint import CheckpointManager
 from repro_torch.configs.base import ShapeSpec, load_config
 from repro_torch.data.pipeline import DataConfig, SyntheticTokens
 from repro_torch.faults.tolerance import StepTimer, StragglerDetector
-from repro_torch.models.model import build_model
-from repro_torch.models.sharding import _MESH_SLICE
+from repro_torch.models import model as MF
+from repro_torch.models.sharding import SINGLE, distribute
 from repro_torch.models.transformer import flatten_tree
 from repro_torch.optim import adamw
 from repro_torch.train.train_loop import make_train_step
@@ -46,15 +51,16 @@ def train(cfg, shape: ShapeSpec, *, steps: int, opt_cfg=None, mesh=None,
     returns (model, opt_state, losses), ``losses`` the (step, loss) pairs
     logged.  With ``ckpt_dir`` it checkpoints every ``ckpt_interval`` steps
     and at the end, and (``resume``) starts from the latest checkpoint
-    there."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_SLICE)
+    there.  With ``mesh`` it trains sharded (module docstring); ``device``
+    must then be of the mesh's device type."""
     opt_cfg = opt_cfg or adamw.AdamWConfig(total_steps=steps)
     device = torch.device(device)
-    model = build_model(cfg, device=device).init(
+    axes = MF.axes_for(cfg, shape, mesh) if mesh is not None else SINGLE
+    model = MF.build_model(cfg, axes, mesh, device=device).init(
         torch.Generator(device).manual_seed(seed))
     opt_state = adamw.init_state(model)
     step_fn = make_train_step(model, opt_cfg, microbatches)
+    in_specs = MF.input_pspecs(cfg, shape, axes) if mesh is not None else {}
 
     data = SyntheticTokens(cfg, shape, DataConfig(
         seed=seed, vocab_size=min(cfg.vocab_size, 512)), device=device)
@@ -74,6 +80,10 @@ def train(cfg, shape: ShapeSpec, *, steps: int, opt_cfg=None, mesh=None,
     saved = False
     for step in range(start_step, steps):
         batch = data.batch_at(step)
+        if mesh is not None:  # every rank holds the global batch
+            batch = {k: distribute(v, mesh, in_specs[k], what=k,
+                                   src_data_rank=None)
+                     for k, v in batch.items()}
         with StepTimer(detector):
             _, opt_state, metrics = step_fn(model, opt_state, batch)
         if (step + 1) % log_every == 0 or step == steps - 1:

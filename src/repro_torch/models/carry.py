@@ -27,12 +27,15 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def params_from_reference(cfg: ModelConfig, tree: dict, *, device="cuda"):
+def params_from_reference(cfg: ModelConfig, tree: dict, *, device="cuda",
+                          axes=None, mesh=None):
     """The port's model for ``cfg`` with its parameters copied from
     ``tree`` onto ``device``.  The tree must hold exactly the model's
     parameter paths, each with the model's shape and ``cfg.param_dtype``;
-    anything else raises."""
-    model = build_model(cfg, device="meta")
+    anything else raises.  With an enabled ``axes`` the model is built on
+    ``mesh`` and the parameters placed by ``param_pspecs`` (rank 0's
+    tree)."""
+    model = build_model(cfg, axes, mesh, device="meta")
     flat = {k: _tensor(v) for k, v in flatten_tree(tree).items()}
     for name, p in model.named_parameters():
         if name in flat and flat[name].dtype != p.dtype:
@@ -40,4 +43,4 @@ def params_from_reference(cfg: ModelConfig, tree: dict, *, device="cuda"):
                              f"holds {p.dtype}")
     model.load_state_dict({k: v.to(device) for k, v in flat.items()},
                           strict=True, assign=True)
-    return model
+    return model.place()

@@ -8,8 +8,9 @@ in the reference's order, so that bf16 rounding follows the same steps:
     plain dict of one layer's slices), weights in the reference's
     ``(in, out)`` layout, applied as ``x @ w``;
   * every function takes ``axes: MeshAxes`` and applies activation
-    constraints through :func:`repro_torch.models.sharding.sc` (the
-    identity: the mesh path waits for the mesh slice);
+    constraints through :func:`repro_torch.models.sharding.sc` at the
+    reference's call sites (the identity without a mesh; on a mesh a
+    ``redistribute`` of the DTensor activations);
   * compute happens in ``cfg.compute_dtype`` (bf16), softmax/norm
     statistics in fp32;
   * ``jax.lax.scan`` over stacked layer params is :func:`xscan`, a Python
@@ -29,9 +30,11 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.sharding import MeshAxes, sc
+from repro_torch.models import sharding as SH
+from repro_torch.models.sharding import MeshAxes, P, sc
 
 
 # ---------------------------------------------------------------------------
@@ -238,11 +241,9 @@ def project_qkv(x, p, cfg: ModelConfig, axes: MeshAxes, angles, kv_x=None):
     kv_x = x if kv_x is None else kv_x
     B, Sq, _ = x.shape
     Skv = kv_x.shape[1]
-    q = (x @ p["wq"].to(cd)).reshape(B, Sq, cfg.num_heads, cfg.head_dim)
-    k = (kv_x @ p["wk"].to(cd)).reshape(B, Skv, cfg.num_kv_heads,
-                                        cfg.head_dim)
-    v = (kv_x @ p["wv"].to(cd)).reshape(B, Skv, cfg.num_kv_heads,
-                                        cfg.head_dim)
+    q = _heads(x @ p["wq"].to(cd), cfg.num_heads, cfg.head_dim)
+    k = _heads(kv_x @ p["wk"].to(cd), cfg.num_kv_heads, cfg.head_dim)
+    v = _heads(kv_x @ p["wv"].to(cd), cfg.num_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -253,6 +254,20 @@ def project_qkv(x, p, cfg: ModelConfig, axes: MeshAxes, angles, kv_x=None):
     k = sc(k, axes, "batch", None, None, None)
     v = sc(v, axes, "batch", None, None, None)
     return q, k, v
+
+
+def _heads(x, H: int, Dh: int):
+    """(B, S, H*Dh) -> (B, S, H, Dh).  On a mesh, DTensor's ``view``
+    cannot split a dimension sharded over n ranks into H heads unless n
+    divides H: such a dimension is gathered over those ranks first."""
+    if isinstance(x, DTensor):
+        mesh, pl = x.device_mesh, list(x.placements)
+        keep = [p if not (isinstance(p, Shard) and p.dim == x.dim() - 1
+                          and H % mesh.size(i)) else Replicate()
+                for i, p in enumerate(pl)]
+        if keep != pl:
+            x = x.redistribute(mesh, keep)
+    return x.reshape(*x.shape[:-1], H, Dh)
 
 
 def _repeat_kv(k, num_heads: int):
@@ -268,13 +283,39 @@ def full_attention(q, k, v, cfg: ModelConfig, axes: MeshAxes, *, causal: bool,
     (B, H, q_chunk, Skv) instead of (B, H, Sq, Skv).  The softmax is taken
     in fp32 over a ``-inf`` causal mask and cast back, as in the reference
     (no ``F.scaled_dot_product_attention``: its numerics differ).
+
+    On a mesh the reference constrains q, k, v, the scores and the output
+    to batch on the batch axes and heads on the model axis; attention is
+    independent across both, so it runs on each rank's local shards
+    (:func:`sharding.to_region`, no communication), as GSPMD runs it: the
+    einsums' flattening of sharded batch and head dimensions has no
+    sharding rule in every DTensor release.
     """
     B, Sq, Hq, Dh = q.shape
-    Skv = k.shape[1]
     k = _repeat_kv(k, Hq)
     v = _repeat_kv(v, Hq)
     k = sc(k, axes, "batch", None, "model", None)
     v = sc(v, axes, "batch", None, "model", None)
+    if not axes.enabled:
+        return _attend(q, k, v, cfg, causal, q_chunk).reshape(B, Sq,
+                                                               Hq * Dh)
+    spec = P(axes.bspec, None, axes.model, None)
+    q = sc(q, axes, *spec)
+    ql, kl, vl = (SH.to_region(t, spec) for t in (q, k, v))
+    out = SH.from_region(_attend(ql, kl, vl, cfg, causal, q_chunk),
+                         q.device_mesh, spec, shape=q.shape)
+    if Hq % SH.axis_size(q.device_mesh, axes.model):
+        # heads split unevenly: whole heads on every rank before the
+        # flatten, which DTensor cannot split by heads
+        out = sc(out, axes, "batch", None, None, None)
+    return out.reshape(B, Sq, Hq * Dh)
+
+
+def _attend(q, k, v, cfg: ModelConfig, causal: bool, q_chunk):
+    """The attention of (B, Sq, H, Dh) ``q`` over ``k``/``v`` (B, Skv, H,
+    Dh), whole or one rank's shards; (B, Sq, H, Dh)."""
+    B, Sq, Hq, Dh = q.shape
+    Skv = k.shape[1]
     scale = Dh**-0.5
     qc = min(q_chunk or cfg.attn_q_chunk, Sq)
     n_chunks = Sq // qc
@@ -282,51 +323,106 @@ def full_attention(q, k, v, cfg: ModelConfig, axes: MeshAxes, *, causal: bool,
 
     def one_chunk(qb, q0: int):
         s = torch.einsum("bqhd,bkhd->bhqk", qb, k) * scale
-        s = sc(s, axes, "batch", "model", None, None)
         if causal:
             q_idx = q0 + torch.arange(qc, device=q.device)
             mask = q_idx[:, None] >= k_idx[None, :]
             s = s.masked_fill(~mask[None, None], float("-inf"))
         a = torch.softmax(s.to(torch.float32), dim=-1).to(qb.dtype)
-        o = torch.einsum("bhqk,bkhd->bqhd", a, v)
-        return sc(o, axes, "batch", None, "model", None)
+        return torch.einsum("bhqk,bkhd->bqhd", a, v)
 
     if n_chunks <= 1:
-        out = one_chunk(q, 0)
-    else:
-        qr = q.reshape(B, n_chunks, qc, Hq, Dh)
-        out = torch.cat([one_chunk(qr[:, c], c * qc)
-                         for c in range(n_chunks)], dim=1)
-    return out.reshape(B, Sq, Hq * Dh)
+        return one_chunk(q, 0)
+    qr = q.reshape(B, n_chunks, qc, Hq, Dh)
+    return torch.cat([one_chunk(qr[:, c], c * qc) for c in range(n_chunks)],
+                     dim=1)
 
 
 def decode_attention(q, k_cache, v_cache, pos, cfg: ModelConfig,
                      axes: MeshAxes):
-    """Single-token attention against a KV cache.
+    """Single-token attention against a (possibly seq-sharded) KV cache.
 
     q: (B, 1, Hq, Dh); caches: (B, Smax, Hkv, Dh); ``pos``: 0-d int tensor
     (or int) — number of valid cache entries (positions >= pos are masked
     out).  The grouped ``(B, Hkv, group, Dh)`` form avoids materializing a
     repeated cache.
+
+    When ``axes.kv_partition == "seq"`` on a mesh the cache's sequence dim
+    is sharded over the model axis (flash-decoding,
+    :func:`_decode_attention_seq`): the softmax statistics and the
+    weighted sum reduce over the model axis.  Otherwise kv-heads are
+    sharded and attention is local: on a mesh it runs on each rank's
+    heads (as :func:`full_attention` does).
     """
     B, _, Hq, Dh = q.shape
-    Smax, Hkv = k_cache.shape[1], k_cache.shape[2]
     if axes.kv_partition == "seq":
         cache_spec = ("batch", "model", None, None)
     else:
         cache_spec = ("batch", None, "model", None)
     k_cache = sc(k_cache, axes, *cache_spec)
     v_cache = sc(v_cache, axes, *cache_spec)
+    if not axes.enabled:
+        return _decode_attend(q, k_cache, v_cache, pos).reshape(B, 1,
+                                                                Hq * Dh)
+    if axes.kv_partition == "seq" and axes.model:
+        return _decode_attention_seq(q, k_cache, v_cache, pos, axes)
+    spec = P(axes.bspec, None, axes.model, None)
+    q = sc(q, axes, *spec)
+    ql, kl, vl = (SH.to_region(t, spec) for t in (q, k_cache, v_cache))
+    out = SH.from_region(_decode_attend(ql, kl, vl, pos), q.device_mesh,
+                         spec, shape=q.shape)
+    return out.reshape(B, 1, Hq * Dh)
+
+
+def _decode_attend(q, k_cache, v_cache, pos):
+    """Grouped single-token attention, whole or one rank's heads; (B, 1,
+    Hq, Dh)."""
+    B, _, Hq, Dh = q.shape
+    Smax, Hkv = k_cache.shape[1], k_cache.shape[2]
     group = Hq // Hkv
     qg = q.reshape(B, Hkv, group, Dh)
     s = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache) * (Dh**-0.5)
-    valid = (torch.arange(Smax, device=q.device) < pos)[None, None, None, :]
-    s = s.to(torch.float32).masked_fill(~valid, float("-inf"))
-    if axes.kv_partition == "seq":
-        s = sc(s, axes, "batch", None, None, "model")
+    valid = (torch.arange(Smax, device=q.device) < _local(pos))
+    s = s.to(torch.float32).masked_fill(~valid[None, None, None, :],
+                                        float("-inf"))
     a = torch.softmax(s, dim=-1).to(q.dtype)
     o = torch.einsum("bhgk,bkhd->bhgd", a, v_cache)
-    return o.reshape(B, 1, Hq * Dh)
+    return o.reshape(B, 1, Hq, Dh)
+
+
+def _local(x):
+    """A replicated DTensor's value on this rank; any other value as is."""
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _decode_attention_seq(q, k_cache, v_cache, pos, axes: MeshAxes):
+    """Flash-decoding over a cache whose sequence is sharded on the model
+    axis (what GSPMD makes of the reference's constraints), on local
+    shards: each model rank scores its positions, the maximum and the
+    exponentials' sum are reduced over the model axis, and each rank's
+    share of the weighted sum of ``v`` is summed over it.  Inference
+    only: no gradient crosses these sums."""
+    mesh = k_cache.device_mesh
+    b = axes.bspec
+    groups = SH.axis_groups(mesh, axes.model)
+    B, _, Hq, Dh = q.shape
+    Hkv = k_cache.shape[2]
+    ql = SH.to_region(q, P(b, None, None, None))
+    kl = SH.to_region(k_cache, P(b, axes.model, None, None))
+    vl = SH.to_region(v_cache, P(b, axes.model, None, None))
+    s_loc = kl.shape[1]
+    first = mesh.get_local_rank(axes.model) * s_loc
+    qg = ql.reshape(ql.shape[0], Hkv, Hq // Hkv, Dh)
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, kl) * (Dh**-0.5)
+    valid = (first + torch.arange(s_loc, device=s.device)) < _local(pos)
+    s = s.to(torch.float32).masked_fill(~valid[None, None, None, :],
+                                        float("-inf"))
+    gmax = SH.max_over(torch.amax(s, dim=-1, keepdim=True), groups)
+    e = torch.exp(s - gmax)
+    a = (e / SH.reduce_from(torch.sum(e, dim=-1, keepdim=True), groups)
+         ).to(ql.dtype)
+    o = SH.reduce_from(torch.einsum("bhgk,bkhd->bhgd", a, vl), groups)
+    return SH.from_region(o.reshape(o.shape[0], 1, Hq * Dh), mesh,
+                          P(b, None, None))
 
 
 # ---------------------------------------------------------------------------
@@ -351,9 +447,10 @@ def mlp_params(gen, cfg: ModelConfig, layers: int | None = None, dtype=None):
 
 
 def _ar_boundary(x, cfg: ModelConfig):
-    """The reference's optimization barrier after TP matmuls (keeps the
-    model-axis all-reduce in bf16): a value identity, and there is no
-    all-reduce without the mesh path."""
+    """The reference's optimization barrier after TP matmuls (keeps XLA's
+    model-axis all-reduce in bf16): a value identity.  DTensor reduces
+    the product's partial sums in its own dtype, so there is nothing to
+    pin."""
     return x
 
 
@@ -448,9 +545,43 @@ def cache_write(cache, new, pos):
     ``new`` (B, 1, Hkv, Dh) at sequence position ``pos`` (a 0-d tensor or
     int, within the cache) of the (B, Smax, Hkv, Dh) ``cache`` and returns
     it.  The caller owns ``cache``: a decode step passes its layer's view
-    of the one copy of the stacked cache that the step makes."""
+    of the one copy of the stacked cache that the step makes.  A DTensor
+    cache is written shard by shard (:func:`_cache_write_sharded`)."""
+    if isinstance(cache, DTensor):
+        return _cache_write_sharded(cache, new, pos)
     idx = torch.as_tensor(pos, device=cache.device).reshape(1).long()
     return cache.index_copy_(1, idx, new.to(cache.dtype))
+
+
+def _cache_write_sharded(cache, new, pos):
+    """:func:`cache_write` on a DTensor cache, on its local shard (DTensor
+    has no sharding rule for ``index_copy_``): ``new`` is placed as the
+    cache is, with its one position replicated, and written by the rank
+    whose sequence shard holds ``pos`` (every rank writes, each its own
+    row or, off its shard, its row back unchanged: no host sync)."""
+    mesh = cache.device_mesh
+    pl = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+          for p in cache.placements]
+    new = new.to(cache.dtype)
+    if isinstance(new, DTensor):
+        new = new.redistribute(mesh, pl)
+    else:
+        new = DTensor.from_local(new, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False).redistribute(mesh, pl)
+    local = cache.to_local()
+    s_loc = local.shape[1]
+    first = 0
+    for i, p in enumerate(cache.placements):
+        if isinstance(p, Shard) and p.dim == 1:
+            first = first * mesh.size(i) + mesh.get_local_rank(i)
+    first *= s_loc
+    at = torch.as_tensor(_local(pos), device=local.device).reshape(1).long()
+    at = at - first
+    mine = (at >= 0) & (at < s_loc)
+    at = torch.clamp(at, 0, s_loc - 1)
+    row = torch.where(mine, new.to_local(), local.index_select(1, at))
+    local.index_copy_(1, at, row)
+    return cache
 
 
 def transformer_block_decode(x, p, cfg: ModelConfig, axes: MeshAxes, angles,
@@ -477,10 +608,8 @@ def cross_block_decode(x, p, cfg: ModelConfig, axes: MeshAxes, enc_kv):
     """Cross-attention sub-block for enc-dec decode (k/v precomputed).
     ``p``: {"ln1": norm weight, "attn": attention params}."""
     cd = cfg.compute_dtype
-    B = x.shape[0]
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    q = (h @ p["attn"]["wq"].to(cd)).reshape(B, 1, cfg.num_heads,
-                                             cfg.head_dim)
+    q = _heads(h @ p["attn"]["wq"].to(cd), cfg.num_heads, cfg.head_dim)
     S_enc = enc_kv["k"].shape[1]
     o = decode_attention(q, enc_kv["k"].to(cd), enc_kv["v"].to(cd), S_enc,
                          cfg, axes)

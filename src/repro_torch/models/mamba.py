@@ -19,7 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import dense_init, full, normal, rms_norm
-from repro_torch.models.sharding import MeshAxes, sc
+from repro_torch.models.sharding import MeshAxes, replicated, sc
 
 
 def segsum(x):
@@ -29,9 +29,8 @@ def segsum(x):
     xc = torch.cumsum(x, dim=-1)
     seg = xc[..., :, None] - xc[..., None, :]
     i = torch.arange(T, device=x.device)
-    mask = i[:, None] >= i[None, :]
-    return torch.where(mask, seg, torch.tensor(-torch.inf, dtype=seg.dtype,
-                                               device=seg.device))
+    mask = replicated(i[:, None] >= i[None, :], seg)
+    return torch.where(mask, seg, float("-inf"))
 
 
 def ssd_chunked(x, dt, A, B, C, chunk: int, initial_state=None):
@@ -76,8 +75,8 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, initial_state=None):
     # 3. inter-chunk linear recurrence (sequential; c is small)
     chunk_decay = torch.exp(dA_cs[..., -1])  # (b, h, c)
     if initial_state is None:
-        initial_state = torch.zeros((b, h, p, n), dtype=states.dtype,
-                                    device=states.device)
+        initial_state = replicated(torch.zeros(
+            (b, h, p, n), dtype=states.dtype, device=states.device), states)
     carry, states_in = initial_state, []
     for ci in range(c):
         states_in.append(carry)  # the state *entering* this chunk

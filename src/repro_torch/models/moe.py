@@ -1,14 +1,20 @@
-"""Mixture-of-Experts FFN with capacity-based routing (GShard-style).
+"""Mixture-of-Experts FFN with capacity-based routing (GShard-style) and
+expert parallelism over the ``model`` mesh axis.
 
-The port of the reference package's ``repro.models.moe``, local path only:
-all experts on one device (the reference's fallback without a mesh, which
-is also its oracle for the expert-parallel path).  Expert parallelism over
-the ``model`` axis (``shard_map`` with a psum combine) waits for the mesh
-slice, and asking for it raises.
+The port of the reference package's ``repro.models.moe``.  Design
+(DESIGN.md §6 EP): at the MoE boundary the hidden states are already
+replicated over the model axis, so dispatch is *local masking + scatter
+into a capacity buffer* on the rank that owns the expert, and combine is a
+single sum over the model axis — no all-to-all.  The reference's
+``shard_map`` region runs on local shards (:func:`_moe_sharded`): each
+model rank runs :func:`_moe_local` over its ``E / tp`` experts.  Without a
+mesh all E experts are local (the reference's fallback, also its oracle
+for the expert-parallel path).
 
-Capacity semantics: each expert accepts at most C = ceil(cf·k·T/E) tokens;
-overflow tokens are dropped for that expert (standard GShard). Slot C is a
-scratch row that absorbs dropped tokens and is discarded.
+Capacity semantics: each expert accepts at most C = ceil(cf·k·T/E) tokens
+per shard (T the shard's tokens); overflow tokens are dropped for that
+expert (standard GShard). Slot C is a scratch row that absorbs dropped
+tokens and is discarded.
 """
 from __future__ import annotations
 
@@ -19,7 +25,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.sharding import _MESH_SLICE, MeshAxes, sc
+from repro_torch.models import sharding as SH
+from repro_torch.models.sharding import MeshAxes, P, sc
 
 
 def moe_params(gen, cfg: ModelConfig, layers: int | None = None):
@@ -39,9 +46,18 @@ def capacity(cfg: ModelConfig, tokens: int) -> int:
                             tokens / cfg.num_experts))
 
 
-def _moe_local(xf, router, w_gate, w_up, w_down, *, cfg: ModelConfig):
-    """MoE over the tokens ``xf`` (T, D) with all E experts local (the
-    reference's ``_moe_local`` with ``model_axis=None``).
+def _moe_local(xf, router, w_gate, w_up, w_down, *, cfg: ModelConfig,
+               region=None):
+    """MoE over the tokens ``xf`` (T, D) and the experts ``w_*`` hold.
+
+    Without ``region`` all E experts are local (the reference's
+    ``_moe_local`` with ``model_axis=None``).  Inside the expert-parallel
+    region, ``region`` is ``(shard, model groups, batch groups, batch
+    ranks)``: the ``w_*`` hold ``E_loc`` experts, expert ``e_local`` is
+    ``shard * E_loc + e_local``, ``xf`` is replicated over the model axis
+    and enters the experts through ``copy_to`` with the gate values, the
+    experts' outputs are summed over it (``reduce_from``), and the
+    load-balance statistics are averaged over the batch axes.
 
     Returns ``(y (T, D), aux (2,) [load_balance, router_z])``.  Each
     expert gathers its routed tokens into a (C+1, D) buffer by their
@@ -53,6 +69,8 @@ def _moe_local(xf, router, w_gate, w_up, w_down, *, cfg: ModelConfig):
     k = cfg.experts_per_token
     cd = cfg.compute_dtype
     f32 = torch.float32
+    E_loc = w_gate.shape[0]
+    shard, model, batch, n_batch = region or (0, (), (), 1)
 
     logits = xf.to(f32) @ router.to(f32)  # (T, E)
     probs = torch.softmax(logits, dim=-1)
@@ -60,10 +78,12 @@ def _moe_local(xf, router, w_gate, w_up, w_down, *, cfg: ModelConfig):
     gate_vals = gate_vals / torch.sum(gate_vals, dim=-1, keepdim=True)
 
     C = capacity(cfg, T)
-    x_cd = xf.to(cd)
+    x_cd = SH.copy_to(xf.to(cd), model)
+    g_vals = SH.copy_to(gate_vals, model)
 
-    def per_expert(wg_e, wu_e, wd_e, e_id):
-        w_te = torch.sum(torch.where(gate_idx == e_id, gate_vals, 0.0),
+    def per_expert(wg_e, wu_e, wd_e, e_local):
+        e_id = shard * E_loc + e_local
+        w_te = torch.sum(torch.where(gate_idx == e_id, g_vals, 0.0),
                          dim=-1)  # (T,)
         m = w_te > 0
         posn = torch.cumsum(m.to(torch.int32), dim=0) - 1
@@ -80,27 +100,61 @@ def _moe_local(xf, router, w_gate, w_up, w_down, *, cfg: ModelConfig):
     ys = torch.stack([per_expert(wg, wu, wd, e) for e, (wg, wu, wd) in
                       enumerate(zip(w_gate.unbind(0), w_up.unbind(0),
                                     w_down.unbind(0)))])
-    y = torch.sum(ys, dim=0)  # (T, D)
+    y = SH.reduce_from(torch.sum(ys, dim=0), model)  # (T, D)
 
     # auxiliary losses (Switch/GShard load balancing + router z-loss)
     f_e = torch.mean(torch.sum(F.one_hot(gate_idx, E).to(f32), dim=1), dim=0)
     p_e = torch.mean(probs, dim=0)
     z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    if batch and model:
+        f_e = SH.mean_over(f_e, batch, n_batch)
+        p_e = SH.mean_over(p_e, batch, n_batch)
+        z = SH.mean_over(z, batch, n_batch)
     load = E * torch.sum(f_e * p_e)
     return y, torch.stack([load, z])
+
+
+def _moe_sharded(xf, p, cfg: ModelConfig, axes: MeshAxes, mesh):
+    """The reference's expert-parallel ``shard_map`` region on local
+    shards: tokens ``P(batch, None)``, the router replicated, the experts
+    ``P(model, None, None)``, cast to ``compute_dtype`` before the region
+    as the reference casts them (the ZeRO gather of each expert then moves
+    half the bytes).  The router and the experts are used on each batch
+    rank's own tokens, so their gradients are partial over the batch
+    axes.  Returns ``(y P(batch, None), aux P())``."""
+    b = axes.bspec
+    cd = cfg.compute_dtype
+    xl = SH.to_region(xf, P(b, None))
+    router = SH.to_region(p["router"], P(None, None), partial=axes.batch)
+    ws = [SH.to_region(p[name].to(cd), P(axes.model, None, None),
+                       partial=axes.batch)
+          for name in ("w_gate", "w_up", "w_down")]
+    region = (mesh.get_local_rank(axes.model),
+              SH.axis_groups(mesh, axes.model),
+              SH.axis_groups(mesh, axes.batch), SH.axis_size(mesh, axes.batch))
+    y, aux = _moe_local(xl, router, *ws, cfg=cfg, region=region)
+    return (SH.from_region(y, mesh, P(b, None)),
+            SH.from_region(aux, mesh, P()))
 
 
 def moe_ffn(x, p, cfg: ModelConfig, axes: MeshAxes, mesh=None):
     """MoE FFN. x: (B, S, D) -> (y: (B, S, D), aux: (2,) [load_balance, z]).
 
-    The local path; an enabled mesh (expert parallelism) raises.
+    With a mesh and sharding enabled, experts are sharded over
+    ``axes.model`` (EP); otherwise runs the dense local fallback (also the
+    reference oracle for equivalence tests).
     """
     B, S, D = x.shape
-    if axes.enabled:
-        raise NotImplementedError(_MESH_SLICE)
     xf = x.reshape(B * S, D)
-    y, aux = _moe_local(xf, p["router"], p["w_gate"], p["w_up"],
-                        p["w_down"], cfg=cfg)
+    if axes.enabled and mesh is not None and axes.model is not None:
+        tp = SH.axis_size(mesh, axes.model)
+        if cfg.num_experts % tp:
+            raise AssertionError(f"num_experts={cfg.num_experts} must divide "
+                                 f"model axis {tp}")
+        y, aux = _moe_sharded(xf, p, cfg, axes, mesh)
+    else:
+        y, aux = _moe_local(xf, p["router"], p["w_gate"], p["w_up"],
+                            p["w_down"], cfg=cfg)
     y = sc(y.reshape(B, S, D), axes, "batch", None, None)
     return y, aux
 

@@ -27,21 +27,32 @@ once ``requires_grad_(True)`` is called on the model.  Each layer body of
 a training trunk, and each chunk of :func:`chunked_ce_loss`, runs under
 ``cfg.remat`` (:func:`_remat`); prefill and decode collect caches and
 never differentiate, so they run their bodies plainly.
+
+On a mesh (``build_model(cfg, axes, mesh)`` with ``axes.enabled``) every
+parameter is a ``DTensor`` placed by ``model.param_pspecs``, and the entry
+points (``loss``, ``prefill``, ``decode_step``) place their inputs by
+``model.input_pspecs`` (``jit``'s ``in_shardings``); the layers' ``sc``
+calls then constrain activations as the reference's do.  The values every
+rank computes alike (positions, masks, zeros) enter as replicated
+DTensors (:func:`sharding.replicated`).
 """
 from __future__ import annotations
 
 from functools import partial
 
 import torch
+import torch.nn as nn
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import moe as MOE
-from repro_torch.models.sharding import _MESH_SLICE, SINGLE, MeshAxes, sc
+from repro_torch.models import sharding as SH
+from repro_torch.models.sharding import SINGLE, MeshAxes, P, sc
 
 # products with no batch dimension (``x @ w`` reaches ``aten.mm``; the
 # attention's batched einsums reach ``aten.bmm``)
@@ -115,22 +126,66 @@ def _angles(cfg: ModelConfig, positions):
 
 def _ce_chunk_gather(hc, lc, embed, axes: MeshAxes):
     """The loss of one sequence chunk: (sum of token losses, count of
-    labelled tokens); ``lc < 0`` marks an unlabelled position."""
+    labelled tokens); ``lc < 0`` marks an unlabelled position.  The
+    baseline: the gold logit is taken from logits gathered over the
+    vocab's shards (:func:`_ce_chunk_vocab_parallel` avoids that)."""
     logits = torch.einsum("bqd,vd->bqv", hc.to(torch.float32),
                           embed.to(torch.float32))
     logits = sc(logits, axes, "batch", None, "model")
     lse = torch.logsumexp(logits, dim=-1)
     mask = lc >= 0
     lbl = torch.where(mask, lc, 0).long()
-    gold = torch.gather(logits, -1, lbl[..., None])[..., 0]
+    # torch.gather has no working sharding rule for logits sharded on the
+    # vocab (DTensor's masked-partial gather fails): they are gathered
+    # over the model axis first, the (B, qc, V) all-gather that GSPMD
+    # inserts here too
+    full = sc(logits, axes, "batch", None, None)
+    gold = torch.gather(full, -1, lbl[..., None])[..., 0]
     tok_loss = torch.where(mask, lse - gold, 0.0)
     return torch.sum(tok_loss), torch.sum(mask.to(torch.float32))
 
 
 def _ce_chunk_vocab_parallel(hc, lc, embed, axes: MeshAxes, mesh):
-    """The reference's vocab-parallel CE runs under ``shard_map`` over the
-    model axis: it waits for the mesh slice."""
-    raise NotImplementedError(_MESH_SLICE)
+    """Vocab-parallel CE (Megatron-style), the reference's ``shard_map``
+    region on local shards: each model rank computes its local logits
+    shard, extracts the gold logit if the label falls in its shard, and
+    only softmax *statistics* cross the wire (two scalars per token
+    instead of the V-wide logits row).
+
+    ``hc`` is replicated over the model axis and used by every model rank
+    for its own vocab shard, so it enters through ``copy_to`` (its
+    gradient is the sum of the ranks' parts); the table's shard is used
+    on each batch rank's own tokens, so its gradient is partial over the
+    batch axes; the sums over the model axis and the batch axes are
+    ``reduce_from`` (their results are replicated)."""
+    b = axes.bspec
+    model = SH.axis_groups(mesh, axes.model)
+    batch = SH.axis_groups(mesh, axes.batch)
+    h = SH.copy_to(SH.to_region(hc, P(b, None, None)), model)
+    lbl = SH.to_region(lc, P(b, None))
+    emb = SH.to_region(embed, P(axes.model, None), partial=axes.batch)
+    shard = mesh.get_local_rank(axes.model)
+    v_loc = emb.shape[0]
+    logits = torch.einsum("bqd,vd->bqv", h.to(torch.float32),
+                          emb.to(torch.float32))
+    local_max = torch.amax(logits, dim=-1)
+    # detached: the max is a numerical-stability shift (the reference's
+    # stop_gradient; pmax has no differentiation rule)
+    gmax = SH.max_over(local_max, model)
+    sumexp = torch.sum(torch.exp(logits - gmax[..., None]), dim=-1)
+    sumexp = SH.reduce_from(sumexp, model)
+    lse = torch.log(sumexp) + gmax
+    mask = lbl >= 0
+    lbl = torch.where(mask, lbl, 0).long()
+    idx = lbl - shard * v_loc
+    in_shard = (idx >= 0) & (idx < v_loc)
+    gold_loc = torch.gather(logits, -1,
+                            torch.clamp(idx, 0, v_loc - 1)[..., None])[..., 0]
+    gold = SH.reduce_from(torch.where(in_shard, gold_loc, 0.0), model)
+    tok_loss = torch.where(mask, lse - gold, 0.0)
+    ls = SH.reduce_from(torch.sum(tok_loss), batch)
+    cnt = SH.reduce_from(torch.sum(mask.to(torch.float32)), batch)
+    return SH.from_region(ls, mesh, P()), SH.from_region(cnt, mesh, P())
 
 
 def chunked_ce_loss(h, embed, labels, cfg: ModelConfig, axes: MeshAxes,
@@ -158,10 +213,12 @@ def chunked_ce_loss(h, embed, labels, cfg: ModelConfig, axes: MeshAxes,
         ls, cnt = _remat(chunk_loss, cfg)(hc, lc)
         return (carry[0] + ls, carry[1] + cnt), None
 
-    zero = torch.zeros((), dtype=torch.float32, device=h.device)
+    zero = SH.replicated(torch.zeros((), dtype=torch.float32,
+                                     device=h.device), h)
     (tot, cnt), _ = L.xscan(cfg, body, (zero, zero),
                             (hr.movedim(1, 0), lr.movedim(1, 0)))
-    return tot / torch.clamp(cnt, min=1)
+    # replicated on a mesh: a partial sum would read as this rank's part
+    return sc(tot / torch.clamp(cnt, min=1), axes)
 
 
 def flatten_tree(tree: dict, prefix: str = "") -> dict:
@@ -189,6 +246,9 @@ class BaseLM(L.ParamTree):
         self.cfg = cfg
         self.axes = axes or SINGLE
         self.mesh = mesh
+        if self.axes.enabled and mesh is None:
+            raise ValueError("an enabled MeshAxes needs the mesh its axes "
+                             "name")
 
     @property
     def device(self) -> torch.device:
@@ -202,11 +262,70 @@ class BaseLM(L.ParamTree):
         raise NotImplementedError
 
     def init(self, generator: torch.Generator) -> "BaseLM":
-        """Draw every parameter from ``generator``, on its device."""
+        """Draw every parameter from ``generator``, on its device (on a
+        mesh: rank 0's draw, placed by ``param_pspecs``)."""
         self.load_state_dict(flatten_tree(self.init_tree(self.cfg,
                                                          generator)),
                              strict=True, assign=True)
+        return self.place()
+
+    def place(self) -> "BaseLM":
+        """On a mesh, every parameter that is still a whole tensor becomes
+        a DTensor placed by ``model.param_pspecs`` (the reference's
+        ``jax.device_put(params, to_shardings(mesh, param_pspecs(...)))``,
+        rank 0's values); without one, nothing changes."""
+        if not self.axes.enabled:
+            return self
+        from repro_torch.models.model import param_pspecs  # noqa: PLC0415
+        specs = flatten_tree(param_pspecs(self, self.cfg))
+        for name, p in list(self.named_parameters()):
+            if isinstance(p, DTensor):
+                continue
+            path, _, leaf = name.rpartition(".")
+            owner = self.get_submodule(path) if path else self
+            owner._parameters[leaf] = nn.Parameter(
+                SH.distribute(p.detach(), self.mesh, specs[name], what=name),
+                requires_grad=p.requires_grad)
         return self
+
+    # ---- inputs on a mesh ----
+    def _inputs(self, batch: dict, kind: str) -> dict:
+        """A batch of whole tensors placed by ``model.input_pspecs`` on the
+        mesh (each rank holds the global batch and keeps its shard); a
+        DTensor leaf is redistributed to its spec.  Unchanged without a
+        mesh."""
+        if not self.axes.enabled:
+            return batch
+        from repro_torch.models.model import input_pspecs  # noqa: PLC0415
+        specs = input_pspecs(self.cfg, ShapeSpec(kind, 0, 0, kind), self.axes)
+        return {k: self._placed(v, specs.get(k, P()), k)
+                for k, v in batch.items()}
+
+    def _placed(self, t, spec, what):
+        if isinstance(t, DTensor):
+            want = SH.placements(self.mesh, spec, t.dim())
+            return (t if tuple(t.placements) == want
+                    else t.redistribute(self.mesh, want))
+        if not isinstance(t, torch.Tensor):
+            return t
+        return SH.distribute(t, self.mesh, spec, what=what,
+                             src_data_rank=None)
+
+    def _decode_inputs(self, state: dict, tokens):
+        """``state`` placed by ``model.state_pspecs`` and ``tokens`` by
+        ``input_pspecs`` on a mesh; unchanged without one."""
+        if not self.axes.enabled:
+            return state, tokens
+        from repro_torch.models.model import state_pspecs  # noqa: PLC0415
+        specs = state_pspecs(state, self.axes)
+
+        def place(x, spec, path):
+            if isinstance(x, dict):
+                return {k: place(x[k], spec[k], f"{path}.{k}") for k in x}
+            return self._placed(x, spec, path)
+
+        state = place(state, specs, "state")
+        return state, self._inputs({"tokens": tokens}, "decode")["tokens"]
 
     @staticmethod
     def _embed_tree(cfg: ModelConfig, gen) -> dict:
@@ -222,8 +341,20 @@ class BaseLM(L.ParamTree):
     def _embed(self, tokens):
         # the rows are cast after the gather: the same values as casting
         # the whole table first, as the reference writes it
-        e = self["embed"][tokens].to(self.cfg.compute_dtype)
-        return sc(e, self.axes, "batch", None, None)
+        table = self["embed"]
+        if not isinstance(table, DTensor):
+            return table[tokens].to(self.cfg.compute_dtype)
+        # on a mesh the lookup runs on local shards: DTensor's rules for
+        # aten.index on a row-sharded table, and for its backward's
+        # index_put on batch-sharded rows, fail on some releases.  Each
+        # rank reads its own tokens' rows of the gathered table, whose
+        # gradient is then partial over the batch axes.
+        b = self.axes.bspec
+        rows = SH.to_region(table, P(), partial=self.axes.batch)[
+            SH.to_region(tokens, P(b))]
+        e = SH.from_region(rows, table.device_mesh, P(b, None, None))
+        return sc(e.to(self.cfg.compute_dtype), self.axes, "batch", None,
+                  None)
 
     def _unembed_table(self):
         return self.get("unembed", self["embed"])
@@ -241,11 +372,23 @@ class BaseLM(L.ParamTree):
                                self.axes, mesh=self.mesh)
 
     def _pos(self, S: int):
-        return torch.tensor(S, dtype=torch.int32, device=self.device)
+        return SH.replicated(torch.tensor(S, dtype=torch.int32,
+                                          device=self.device), self["embed"])
+
+    def _angles_for(self, h):
+        """RoPE angles of positions 0..S-1 for the (B, S, D) ``h``."""
+        B, S = h.shape[:2]
+        return SH.replicated(_angles(self.cfg, _positions(
+            self.cfg, B, S, device=h.device)), h)
 
     def _decode_angles(self, B: int, pos):
-        return _angles(self.cfg, _positions(self.cfg, B, 1, offset=pos,
-                                            device=self.device))
+        """RoPE angles of position ``pos`` (a 0-d tensor, replicated on a
+        mesh) for a batch of ``B`` tokens."""
+        like = pos
+        if isinstance(pos, DTensor):
+            pos = pos.to_local()
+        return SH.replicated(_angles(self.cfg, _positions(
+            self.cfg, B, 1, offset=pos, device=self.device)), like)
 
     # interface stubs
     def loss(self, batch):
@@ -344,29 +487,36 @@ class DenseLM(BaseLM):
         return h
 
     def loss(self, batch):
+        batch = self._inputs(batch, "train")
         cfg = self.cfg
         h = self._inputs_to_h(batch)
-        B, S, _ = h.shape
-        angles = _angles(cfg, _positions(cfg, B, S, device=h.device))
+        B = h.shape[0]
+        angles = self._angles_for(h)
         h, _ = self._trunk(h, angles)
         labels = batch["labels"]
         if h.shape[1] != labels.shape[1]:  # vlm: no loss on patch positions
             pad = torch.full((B, h.shape[1] - labels.shape[1]), -1,
                              dtype=labels.dtype, device=labels.device)
+            if isinstance(labels, DTensor):   # placed as the labels are
+                pad = DTensor.from_local(
+                    pad[:labels.to_local().shape[0]], labels.device_mesh,
+                    labels.placements, run_check=False)
             labels = torch.cat([pad, labels], dim=1)
         loss = self._hidden_loss(h, labels)
         return loss, {"ce": loss}
 
     def prefill(self, batch, pad_to: int | None = None):
+        batch = self._inputs(batch, "prefill")
         cfg = self.cfg
         h = self._inputs_to_h(batch)
-        B, S, _ = h.shape
-        angles = _angles(cfg, _positions(cfg, B, S, device=h.device))
+        S = h.shape[1]
+        angles = self._angles_for(h)
         h, kv = self._trunk(h, angles, collect_kv=True)
         logits = self._logits(h[:, -1])
         return logits, {"kv": self._pad_kv(kv, pad_to), "pos": self._pos(S)}
 
     def decode_step(self, state, tokens):
+        state, tokens = self._decode_inputs(state, tokens)
         cfg = self.cfg
         h = self._embed(tokens[:, None])
         pos = state["pos"]
@@ -417,31 +567,33 @@ class MoeLM(BaseLM):
             y, a = MOE.moe_ffn(hn, lp["moe"], cfg, self.axes, self.mesh)
             return (x + y, aux + a), (kv if collect_kv else None)
 
-        aux0 = torch.zeros(2, device=h.device)
+        aux0 = SH.replicated(torch.zeros(2, device=h.device), h)
         (h, aux), kv = L.xscan(cfg, body if collect_kv else _remat(body, cfg),
                                (h, aux0), self["layers"])
         return h, aux / cfg.num_layers, kv
 
     def loss(self, batch):
+        batch = self._inputs(batch, "train")
         cfg = self.cfg
         h = self._embed(batch["tokens"])
-        B, S, _ = h.shape
-        angles = _angles(cfg, _positions(cfg, B, S, device=h.device))
+        angles = self._angles_for(h)
         h, aux, _ = self._trunk(h, angles)
         ce = self._hidden_loss(h, batch["labels"])
         loss = ce + 0.01 * aux[0] + 1e-3 * aux[1]
         return loss, {"ce": ce, "load_balance": aux[0], "router_z": aux[1]}
 
     def prefill(self, batch, pad_to: int | None = None):
+        batch = self._inputs(batch, "prefill")
         cfg = self.cfg
         h = self._embed(batch["tokens"])
-        B, S, _ = h.shape
-        angles = _angles(cfg, _positions(cfg, B, S, device=h.device))
+        S = h.shape[1]
+        angles = self._angles_for(h)
         h, _, kv = self._trunk(h, angles, collect_kv=True)
         return (self._logits(h[:, -1]),
                 {"kv": self._pad_kv(kv, pad_to), "pos": self._pos(S)})
 
     def decode_step(self, state, tokens):
+        state, tokens = self._decode_inputs(state, tokens)
         cfg = self.cfg
         h = self._embed(tokens[:, None])
         pos = state["pos"]
@@ -492,12 +644,14 @@ class MambaLM(BaseLM):
                        self["layers"])
 
     def loss(self, batch):
+        batch = self._inputs(batch, "train")
         h = self._embed(batch["tokens"])
         h, _ = self._trunk(h)
         ce = self._hidden_loss(h, batch["labels"])
         return ce, {"ce": ce}
 
     def prefill(self, batch, pad_to: int | None = None):
+        batch = self._inputs(batch, "prefill")
         h = self._embed(batch["tokens"])
         S = h.shape[1]
         h, (ssm, conv) = self._trunk(h, collect_state=True)
@@ -505,6 +659,7 @@ class MambaLM(BaseLM):
         return logits, {"ssm": ssm, "conv": conv, "pos": self._pos(S)}
 
     def decode_step(self, state, tokens):
+        state, tokens = self._decode_inputs(state, tokens)
         cfg = self.cfg
         h = self._embed(tokens[:, None])
 
@@ -578,19 +733,20 @@ class HybridLM(BaseLM):
                        h, self["ssm_layers"])
 
     def loss(self, batch):
+        batch = self._inputs(batch, "train")
         cfg = self.cfg
         h = self._embed(batch["tokens"])
-        B, S, _ = h.shape
-        angles = _angles(cfg, _positions(cfg, B, S, device=h.device))
+        angles = self._angles_for(h)
         h, _ = self._trunk(h, angles)
         ce = self._hidden_loss(h, batch["labels"])
         return ce, {"ce": ce}
 
     def prefill(self, batch, pad_to: int | None = None):
+        batch = self._inputs(batch, "prefill")
         cfg = self.cfg
         h = self._embed(batch["tokens"])
-        B, S, _ = h.shape
-        angles = _angles(cfg, _positions(cfg, B, S, device=h.device))
+        S = h.shape[1]
+        angles = self._angles_for(h)
         h, (states, k, v) = self._trunk(h, angles, collect=True)
         ssm, conv = states
         logits = self._logits(h[:, -1])
@@ -599,6 +755,7 @@ class HybridLM(BaseLM):
                         "pos": self._pos(S)}
 
     def decode_step(self, state, tokens):
+        state, tokens = self._decode_inputs(state, tokens)
         cfg = self.cfg
         h = self._embed(tokens[:, None])
         pos = state["pos"]
@@ -659,8 +816,7 @@ class EncDecLM(BaseLM):
         cfg = self.cfg
         h = audio_frames.to(cfg.compute_dtype)
         h = sc(h, self.axes, "batch", None, None)
-        B, S, _ = h.shape
-        angles = _angles(cfg, _positions(cfg, B, S, device=h.device))
+        angles = self._angles_for(h)
 
         def body(x, lp):
             return (L.transformer_block(x, lp, cfg, self.axes, angles,
@@ -689,11 +845,11 @@ class EncDecLM(BaseLM):
                        self["dec_layers"])
 
     def loss(self, batch):
+        batch = self._inputs(batch, "train")
         cfg = self.cfg
         enc_out = self.encode(batch["audio_frames"])
         h = self._embed(batch["tokens"])
-        B, S, _ = h.shape
-        angles = _angles(cfg, _positions(cfg, B, S, device=h.device))
+        angles = self._angles_for(h)
         h, _ = self._decoder(h, enc_out, angles)
         ce = self._hidden_loss(h, batch["labels"])
         return ce, {"ce": ce}
@@ -715,11 +871,12 @@ class EncDecLM(BaseLM):
         return enc_kv
 
     def prefill(self, batch, pad_to: int | None = None):
+        batch = self._inputs(batch, "prefill")
         cfg = self.cfg
         enc_out = self.encode(batch["audio_frames"])
         h = self._embed(batch["tokens"])
-        B, S, _ = h.shape
-        angles = _angles(cfg, _positions(cfg, B, S, device=h.device))
+        S = h.shape[1]
+        angles = self._angles_for(h)
         h, kv = self._decoder(h, enc_out, angles, collect_kv=True)
         logits = self._logits(h[:, -1])
         return logits, {"kv": self._pad_kv(kv, pad_to),
@@ -727,6 +884,7 @@ class EncDecLM(BaseLM):
                         "pos": self._pos(S)}
 
     def decode_step(self, state, tokens):
+        state, tokens = self._decode_inputs(state, tokens)
         cfg = self.cfg
         cd = cfg.compute_dtype
         h = self._embed(tokens[:, None])
@@ -783,10 +941,14 @@ def build_model(cfg: ModelConfig, axes: MeshAxes | None = None, mesh=None,
                 *, device="cuda"):
     """The family's model with its parameters allocated, not drawn, on
     ``device`` (``"meta"``: shapes only); draw them with
-    ``model.init(generator)`` or load them with ``models.carry``."""
-    if axes is not None and axes.enabled:
-        raise NotImplementedError(_MESH_SLICE)
+    ``model.init(generator)`` or load them with ``models.carry``.  With an
+    enabled ``axes`` the parameters are DTensors on ``mesh``, placed by
+    ``model.param_pspecs`` (``device`` must be of the mesh's device
+    type)."""
     model = FAMILIES[cfg.family](cfg, axes, mesh)
     if torch.device(device).type == "meta":
         return model
-    return model.to_empty(device=device)
+    if model.axes.enabled and torch.device(device).type != mesh.device_type:
+        raise ValueError(f"device {device} is not on the {mesh.device_type} "
+                         "mesh")
+    return model.to_empty(device=device).place()

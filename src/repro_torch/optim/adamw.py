@@ -18,6 +18,11 @@ Two points are the reference's and kept:
   ``nu`` into the tensors it was given, under ``torch.no_grad()`` (the
   reference donates them: ``jax.jit(..., donate_argnums=(0, 1))``).  It
   still returns ``(params, state, metrics)``.
+
+On a mesh the leaves are DTensors: ``mu`` and ``nu`` are placed as their
+parameters, the step is a replicated 0-d DTensor, and the global norm is
+taken over the whole sharded tensors (DTensor sums a shard's squares and
+reduces the partial sums over the mesh), not over this rank's shards.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.models.sharding import replicated
 from repro_torch.tree_util import tree_flatten, tree_leaves, tree_map
 
 
@@ -55,14 +61,18 @@ def _device(params) -> torch.device:
 
 
 def init_state(params) -> AdamWState:
-    """Zero moments for a parameter tree (a model or a nested dict)."""
+    """Zero moments for a parameter tree (a model or a nested dict), each
+    placed as its parameter; the step replicated beside them."""
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32,
+                                memory_format=torch.contiguous_format)
 
     mu = tree_map(zeros, params)
     nu = tree_map(zeros, params)
-    return AdamWState(torch.zeros((), dtype=torch.int32,
-                                  device=_device(params)), mu, nu)
+    leaves = tree_leaves(params)
+    step = torch.zeros((), dtype=torch.int32, device=_device(params))
+    return AdamWState(replicated(step, leaves[0]) if leaves else step, mu,
+                      nu)
 
 
 def schedule(cfg: AdamWConfig, step):

@@ -1,4 +1,4 @@
-"""Gradient compression with error feedback, the local half.
+"""Gradient compression with error feedback for the cross-pod all-reduce.
 
 The port of the reference package's ``repro.optim.compression``: per-block
 symmetric int8 quantization (``BLOCK`` values a block, one f32 scale a
@@ -6,22 +6,22 @@ block, rounding half to even as ``jnp.round`` does), its inverse, and
 ``ErrorFeedback`` (compress ``g + e``, keep ``e' = (g + e) - decompress``).
 The quantized values and scales are bit for bit the reference's.
 
-The reference sums the int8 payload over a mesh axis inside ``shard_map``
-(``psum_int8``, ``compressed_psum_tree``: an all-gather of the payload
-and its scales); those two wait for the mesh slice of the port and raise.
+``psum_int8`` sums each rank's local tensor over a mesh axis of the
+current mesh (``launch.mesh.set_mesh``; the reference runs it inside
+``shard_map``): the int8 payload and its f32 scales are all-gathered over
+the axis's process group (~1.016 B/element on the wire against 4 B for an
+f32 sum), then dequantized and summed in rank order on every rank.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from repro_torch.launch.mesh import current_mesh
 from repro_torch.tree_util import tree_map
 
 BLOCK = 256
-
-_MESH = ("psum_int8/compressed_psum_tree sum over a mesh axis (an "
-         "all-gather inside shard_map): they wait for the mesh slice of the "
-         "port (ROADMAP.md queue 1, item 7b)")
 
 
 def quantize_int8(x, block: int = BLOCK):
@@ -46,14 +46,33 @@ def dequantize_int8(q, scale, meta):
     return flat.reshape(shape).to(dtype)
 
 
+def _gather(t, group, n: int):
+    """The ``n`` ranks' ``t`` of ``group`` stacked in rank order."""
+    out = torch.empty((n * t.shape[0], *t.shape[1:]), dtype=t.dtype,
+                      device=t.device)
+    dist.all_gather_into_tensor(out, t.contiguous(), group=group)
+    return out.view(n, *t.shape)
+
+
 def psum_int8(x, axis: str):
-    """The reference's int8 all-gather sum over ``axis``: not ported."""
-    raise NotImplementedError(_MESH)
+    """Drop-in for ``psum`` over the mesh axis ``axis`` of the current mesh:
+    quantize this rank's ``x`` (its local shard, a plain tensor), all-gather
+    the int8 payload (+ f32 per-block scales) over ``axis``, dequantize and
+    sum in rank order.  Every rank returns the same sum; no gradient."""
+    mesh = current_mesh()
+    group = mesh.get_group(axis)
+    n = dist.get_world_size(group)
+    q, scale, meta = quantize_int8(x)
+    qs = _gather(q, group, n)          # (n_axis, blocks, BLOCK) int8
+    ss = _gather(scale, group, n)
+    total = torch.sum(qs.to(torch.float32) * ss, dim=0)
+    n_el, shape, dtype = meta
+    return total.reshape(-1)[:n_el].reshape(shape).to(dtype)
 
 
 def compressed_psum_tree(tree, axis: str):
-    """psum_int8 over every leaf of a tree: not ported."""
-    raise NotImplementedError(_MESH)
+    """psum_int8 over every leaf of a tree."""
+    return tree_map(lambda x: psum_int8(x, axis), tree)
 
 
 class ErrorFeedback:

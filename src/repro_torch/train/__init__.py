@@ -1,2 +1,2 @@
-"""Serving (prefill, decode step, sampling) and the training step on the
-port's models; the pipeline-parallel schedule waits for the mesh slice."""
+"""Serving (prefill, decode step, sampling), the training step and the
+GPipe pipeline over a mesh axis on the port's models."""

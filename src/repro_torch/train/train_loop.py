@@ -8,11 +8,18 @@ bodies' activation checkpointing is ``cfg.remat``, see
 ``models/transformer.py:_remat``).  Gradient accumulation bounds
 activation memory: ``num_microbatches`` forward/backward passes, their
 gradients summed in f32 and divided by the count, one optimizer update.
+
+On a mesh the parameters are DTensors and autograd returns DTensor
+gradients; one that comes back partial (a replicated weight used on each
+batch rank's own tokens) or otherwise placed is redistributed to its
+parameter's placements before the update, which sums it over the mesh.
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.models.sharding import replicated
 from repro_torch.optim import adamw
 
 
@@ -55,10 +62,17 @@ def make_train_step(model, opt_cfg: adamw.AdamWConfig,
     names, params = zip(*model.named_parameters())
     n = num_microbatches
 
+    def placed(g, p):
+        if isinstance(p, DTensor) and tuple(g.placements) != \
+                tuple(p.placements):
+            return g.redistribute(p.device_mesh, p.placements)
+        return g
+
     def grad_fn(mb):
         loss, metrics = model.loss(mb)
         grads = torch.autograd.grad(loss, params)
-        return loss.detach(), metrics, grads
+        return (loss.detach(), metrics,
+                [placed(g, p) for g, p in zip(grads, params)])
 
     def train_step(params_, opt_state, batch):
         if params_ is not model:
@@ -69,9 +83,11 @@ def make_train_step(model, opt_cfg: adamw.AdamWConfig,
             metrics = {k: v.detach() for k, v in metrics.items()}
         else:
             mbs = {k: _split(v, n) for k, v in batch.items()}
-            acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            acc = [torch.zeros_like(p, dtype=torch.float32,
+                                    memory_format=torch.contiguous_format)
                    for p in params]
-            lsum = torch.zeros((), dtype=torch.float32, device=model.device)
+            lsum = replicated(torch.zeros((), dtype=torch.float32,
+                                          device=model.device), params[0])
             for i in range(n):
                 l, _, g = grad_fn({k: v[i] for k, v in mbs.items()})
                 acc = [a + gg.to(torch.float32) for a, gg in zip(acc, g)]

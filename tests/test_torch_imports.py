@@ -69,7 +69,7 @@ def test_package_has_the_slice_modules():
                  "train", "train.serve", "tree_util", "optim",
                  "optim.adamw", "optim.compression", "data", "data.pipeline",
                  "checkpoint", "checkpoint.checkpoint", "train.train_loop",
-                 "launch", "launch.train"):
+                 "launch", "launch.train", "launch.mesh", "train.pipeline"):
         assert f"repro_torch.{name}" in mods, name
 
 
@@ -183,6 +183,12 @@ def test_defaults_are_the_card():
     params = inspect.signature(PredictionService).parameters
     assert params["predict_backend"].default is None
     assert params["predict_device"].default is None
+    # the mesh: NCCL meshes of the card
+    from repro_torch.launch import mesh
+    for fn in (mesh.make_host_mesh, mesh.make_production_mesh,
+               mesh.start_local_group):
+        assert inspect.signature(fn).parameters["device_type"].default == \
+            "cuda"
     if torch.cuda.is_available():
         assert resolve_device() == torch.device("cuda:0")
 

@@ -4,9 +4,9 @@ CPU: ``transformer_block``, ``mlp_block`` (both MLP kinds) and
 dropped past capacity, M-RoPE on three distinct position streams, the
 analytic roofline counters, the parameter paths and the decode-state and
 input specs of every config, ``init`` from a ``torch.Generator``, and what
-raises because it waits for a later slice (the mesh path: sharded
-activations and experts, the vocab-parallel cross-entropy, the int8
-all-gather sum, a mesh given to the trainer).  The whole-model comparisons are in ``test_torch_models.py``,
+the mesh path refuses (a plain tensor under an enabled ``MeshAxes``, a
+mesh missing, a mesh without its ranks; the mesh itself is tested in
+``test_torch_mesh_*.py``).  The whole-model comparisons are in ``test_torch_models.py``,
 whose helpers and tolerances (stated there) these tests share.
 """
 import jax
@@ -204,31 +204,29 @@ def test_init_draws_from_the_generator():
 
 
 def test_what_waits_for_later_slices_raises():
-    from repro_torch.launch.train import train
-    from repro_torch.models.transformer import _ce_chunk_vocab_parallel
+    """Nothing of the mesh path waits for a later slice any more; what
+    raises now is its misuse: a plain tensor under an enabled
+    ``MeshAxes`` (it escaped the mesh), an enabled ``MeshAxes`` without
+    its mesh, the int8 sum outside a mesh, a mesh without its ranks."""
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.optim import compression as PCOMP
     sharded = PSH.MeshAxes(batch=("data",), model="model", enabled=True)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DTensor"):
         PSH.sc(torch.zeros(2), sharded, "batch")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        PSH.make_axes(None)
     _, pcfg = _configs("phi3_5_moe_42b")
     moe = PL.ParamTree(PMOE.moe_params(torch.Generator().manual_seed(0),
                                        pcfg))
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DTensor"):
         PMOE.moe_ffn(torch.zeros(1, 2, pcfg.d_model), moe, pcfg, sharded)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="mesh"):
         PMF.build_model(p_load("minitron_8b", smoke=True), sharded,
                         device="meta")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        _ce_chunk_vocab_parallel(None, None, None, sharded, object())
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(RuntimeError, match="no current mesh"):
         PCOMP.psum_int8(torch.ones(3), "pod")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(RuntimeError, match="no current mesh"):
         PCOMP.compressed_psum_tree({"g": torch.ones(3)}, "pod")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        train(p_load("smollm_360m", smoke=True), P_SHAPES["train_4k"],
-              steps=1, mesh=object(), device="cpu")
+    with pytest.raises(RuntimeError, match="process group"):
+        make_host_mesh(2, 2, device_type="cpu")
     x = torch.ones(3)
     assert PSH.sc(x, PSH.SINGLE, "batch") is x
 
