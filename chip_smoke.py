@@ -93,6 +93,17 @@ drives the port's paths on the card:
   a one-stage pipeline and Phi-3.5-MoE's expert-parallel loss and
   gradients (2 layers, full width) against their local versions.  The
   regions are PyTorch plus NCCL collectives: no kernel of the port.
+* **the dry run** (``launch/dryrun.py``, ``analysis/{hlo_stats,roofline,
+  report}.py``).  A child process that cannot import jax or ``repro``,
+  started at the beginning and tracing on the host beside the other
+  phases, dry-runs production cells on fake CUDA tensors over ``fake``
+  process groups of 256 and 512 ranks (SmolLM-360M's train, prefill and
+  decode and Phi-3.5-MoE's decode on (16, 16), SmolLM's decode on
+  (2, 16, 16)): bytes a device, the 80 GB fit, collectives, FLOPs, the
+  three roofline terms.  SmolLM-360M's 8 x 128 train step, dry-run on a
+  1 x 1 mesh, then runs for real on one NCCL rank: FLOPs and argument
+  bytes equal, the peak within ``DRYRUN_PEAK_RATIO`` of
+  ``max_memory_allocated``, the step no faster than its compute bound.
 
 Every phase prints a line; any failure exits non-zero and prints no
 result.  The last three lines are the card's name and power limit, the
@@ -2535,6 +2546,266 @@ def phase_mesh(smi, training):
     return out
 
 
+# ----------------------------------------------------------------- dry run
+# the production cells the [dryrun] child traces on fake CUDA tensors, in
+# the memory variant (train_microbatches): (arch, shape, multi-pod)
+DRYRUN_CELLS = (("smollm_360m", "train_4k", False),
+                ("smollm_360m", "prefill_32k", False),
+                ("smollm_360m", "decode_32k", False),
+                ("phi3_5_moe_42b", "decode_32k", False),
+                ("smollm_360m", "decode_32k", True))
+# the dry run's peak over the real step's (the one-card check), and the
+# measured step over its roofline bound, each a required range
+DRYRUN_PEAK_RATIO = (0.8, 1.25)
+DRYRUN_TIMED_STEPS = 3
+DRYRUN_CHILD_TIMEOUT = 900
+
+# the child: no jax, no repro; one fake group a cell (run_cell starts and
+# destroys it), then a one-rank fake group for the one-card cell; its
+# result on the last line of its stdout
+DRYRUN_CHILD = r"""
+import json, sys, time
+t0 = time.perf_counter()
+for name in ("jax", "jaxlib", "repro"):
+    sys.modules[name] = None
+from pathlib import Path
+import torch.distributed as dist
+from repro_torch.analysis.roofline import roofline
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.launch.dryrun import run_cell, start_fake_group
+from repro_torch.launch.mesh import make_host_mesh
+out_dir, device = Path(sys.argv[1]), sys.argv[2]
+cells, (arch, seq, batch) = json.loads(sys.argv[3]), json.loads(sys.argv[4])
+res = {"cells": []}
+for a, shape, multi in cells:
+    rec = run_cell(a, shape, multi, "memory", out_dir, device_type=device)
+    rec.pop("traceback", None)
+    rec["roofline"] = roofline(rec, 512 if multi else 256)
+    res["cells"].append(rec)
+start_fake_group(1)
+mesh = make_host_mesh(1, 1, device_type=device)
+rec = run_cell(arch, ShapeSpec("train", seq, batch, "train"), False, "cost",
+               out_dir, tag="card_1x1", device_type=device, mesh=mesh)
+dist.destroy_process_group()
+rec.pop("traceback", None)
+res["card"] = rec
+res["wall_s"] = time.perf_counter() - t0
+print(json.dumps(res))
+"""
+
+
+def start_dryrun(device="cuda"):
+    """Start the ``[dryrun]`` child (host work only: fake tensors, no
+    device memory) so that it runs beside the card's phases; returns the
+    process and its directory.  The process is killed when this one
+    exits."""
+    import atexit
+    import tempfile
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("REPRO_")}
+    env.update(PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    with open(tmp / "stdout", "w") as out, open(tmp / "stderr", "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", DRYRUN_CHILD, str(tmp / "records"),
+             device, json.dumps(DRYRUN_CELLS),
+             json.dumps([TRAIN_ARCH, TRAIN_SEQ, TRAIN_BATCH])],
+            cwd=tmp, env=env, stdout=out, stderr=err)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    atexit.register(shutil.rmtree, tmp, True)
+    return proc, tmp, time.perf_counter()
+
+
+def _gb(n):
+    return n / 1e9
+
+
+def _dryrun_cell_line(rec):
+    ma, ca, rf = (rec["memory_analysis"], rec["cost_analysis"],
+                  rec["roofline"])
+    args, temp = ma["argument_size_in_bytes"], ma["temp_size_in_bytes"]
+    coll = rec["collectives"]
+    return (f"[dryrun] {rec['arch']} {rec['shape']} on the "
+            f"{'(2, 16, 16)' if rec['mesh'] == 'multi' else '(16, 16)'} "
+            f"mesh, memory variant: ok, traced in {rec['lower_s']:.1f} s; "
+            f"a device: args {_gb(args):.3f} GB, temp {_gb(temp):.3f} GB, "
+            f"peak {_gb(args + temp):.3f} GB "
+            f"({'fits' if args + temp < H100_SXM['hbm_bytes'] else 'does NOT fit'} "
+            f"{_gb(H100_SXM['hbm_bytes']):.0f} GB); collectives "
+            f"{dict(sorted(coll['count'].items()))}, "
+            f"{_gb(coll['total_wire_bytes']):.4f} GB on the wire "
+            f"({_gb(rec['collective_links']['nvlink']):.4f} NVLink, "
+            f"{_gb(rec['collective_links']['ib']):.4f} IB); "
+            f"{ca['flops']:.4g} FLOPs; roofline compute "
+            f"{rf['compute_s'] * 1e3:.3f} ms, memory "
+            f"{rf['memory_s'] * 1e3:.3f} ms, collective "
+            f"{rf['collective_s'] * 1e3:.3f} ms ({rf['dominant']})")
+
+
+def _dryrun_real_step(device):
+    """The one-card cell for real: SmolLM-360M uncut, one
+    ``make_train_step`` step (one microbatch, as ``[train]``) of
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` on a 1 x 1 mesh; returns its argument
+    bytes (counted as the dry run counts them: ``local_bytes``), its peak
+    (the growth of ``max_memory_allocated`` over the step, plus those
+    arguments), FLOPs (``FlopCounterMode``) and the median step time."""
+    import gc
+
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.base import ShapeSpec, load_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.launch.dryrun import local_bytes
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as MF
+    from repro_torch.models.sharding import distribute
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_loop import make_train_step
+
+    on_card = torch.device(device).type == "cuda"
+    cfg = load_config(TRAIN_ARCH)
+    shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    mesh = make_host_mesh(1, 1, device_type=torch.device(device).type)
+    axes = MF.axes_for(cfg, shape, mesh)
+    model = MF.build_model(cfg, axes, mesh, device=device).init(
+        torch.Generator(device=device).manual_seed(TRAIN_SEED))
+    opt = adamw.init_state(model)
+    step = make_train_step(model, adamw.AdamWConfig(**TRAIN_OPT), 1)
+    data = SyntheticTokens(cfg, shape, DataConfig(seed=TRAIN_SEED),
+                           device=device)
+    specs = MF.input_pspecs(cfg, shape, axes)
+
+    def batch(i):
+        return {k: distribute(v, mesh, specs[k], what=k)
+                for k, v in data.batch_at(i).items()}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    step(model, opt, batch(0))   # warm: sharding propagation, cuBLAS
+    b = batch(1)
+    args = local_bytes([model, opt, b])
+    gc.collect()
+    sync()
+    if on_card:
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    step(model, opt, b)
+    sync()
+    peak = (torch.cuda.max_memory_allocated() - base + args if on_card
+            else None)
+    with FlopCounterMode(display=False) as fc:
+        step(model, opt, batch(2))
+    sync()
+    times = []
+    for i in range(DRYRUN_TIMED_STEPS):
+        b = batch(3 + i)
+        sync()
+        t0 = time.perf_counter()
+        step(model, opt, b)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    del model, opt, step, b
+    dist.destroy_process_group()
+    return {"args": args, "peak": peak, "flops": fc.get_total_flops(),
+            "ms": sorted(times)[len(times) // 2], "ms_all": times}
+
+
+def phase_dryrun(smi, started):
+    """``[dryrun]``: the child started by :func:`start_dryrun` (no jax, no
+    ``repro``) dry-runs ``DRYRUN_CELLS`` on fake CUDA tensors over the
+    256- and 512-rank production meshes of a ``fake`` group (this card's
+    torch, whose DTensor rules are older than the CPU tests'), and the
+    one-card cell, SmolLM-360M uncut training at ``TRAIN_BATCH`` x
+    ``TRAIN_SEQ`` on a 1 x 1 mesh.  Every cell must run.  Then the same
+    step runs for real on a one-rank NCCL mesh: the dry run's FLOPs must
+    equal ``FlopCounterMode``'s on the real step, its per-device peak
+    (arguments + temp) must be within ``DRYRUN_PEAK_RATIO`` of the real
+    step's (``max_memory_allocated`` above what was allocated before the
+    step, plus the step's arguments), and the measured step must take at
+    least the roofline's compute term."""
+    proc, tmp, t_start = started
+    try:
+        proc.wait(timeout=DRYRUN_CHILD_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise SystemExit(f"chip_smoke: the [dryrun] child ran past "
+                         f"{DRYRUN_CHILD_TIMEOUT} s")
+    waited_s = time.perf_counter() - t_start
+    stdout = (tmp / "stdout").read_text()
+    if proc.returncode != 0:
+        log(stdout[-4000:])
+        log((tmp / "stderr").read_text()[-4000:])
+    require(proc.returncode == 0, f"the [dryrun] child exited "
+            f"{proc.returncode}")
+    res = json.loads(stdout.strip().splitlines()[-1])
+    out = {"card": smi, "child_s": res["wall_s"], "cells": []}
+    for rec in res["cells"]:
+        if not rec["ok"]:
+            log(f"[dryrun] {rec['arch']} {rec['shape']} {rec['mesh']}: "
+                f"FAILED on torch {torch.__version__}: {rec['error']}")
+        require(rec["ok"], f"the dry run of {rec['arch']} {rec['shape']} "
+                f"({rec['mesh']}) failed: {rec.get('error')}")
+        log(_dryrun_cell_line(rec) + f"; {smi}")
+        out["cells"].append({k: rec[k] for k in (
+            "arch", "shape", "mesh", "variant", "lower_s",
+            "memory_analysis", "cost_analysis", "collectives",
+            "collective_links", "roofline")})
+
+    card = res["card"]
+    require(card["ok"], f"the one-card dry run failed: {card.get('error')}")
+    ma, ca = card["memory_analysis"], card["cost_analysis"]
+    dry_peak = ma["argument_size_in_bytes"] + ma["temp_size_in_bytes"]
+    compute_ms = ca["flops"] / H100_SXM["peak_bf16_flops"] * 1e3
+    memory_ms = ca["bytes accessed"] / H100_SXM["hbm_bw"] * 1e3
+    coll_wire = card["collectives"]["total_wire_bytes"]
+    t0 = time.perf_counter()
+    real = _dryrun_real_step("cuda")
+    real_s = time.perf_counter() - t0
+    ratio = dry_peak / real["peak"]
+    log(f"[dryrun] one card, {TRAIN_ARCH} uncut, one train step of "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} on a 1 x 1 mesh: dry run (fake CUDA "
+        f"tensors, traced in {card['lower_s']:.1f} s) args "
+        f"{_gb(ma['argument_size_in_bytes']):.4f} GB + temp "
+        f"{_gb(ma['temp_size_in_bytes']):.4f} GB = peak {_gb(dry_peak):.4f} "
+        f"GB; the real step's args {_gb(real['args']):.4f} GB, peak "
+        f"{_gb(real['peak']):.4f} GB (max_memory_allocated above the "
+        f"step's start, plus its arguments): ratio {ratio:.4f}; FLOPs dry "
+        f"{ca['flops']:.6g}, FlopCounterMode on the real step "
+        f"{real['flops']:.6g}; {smi}")
+    log(f"[dryrun] the real step {real['ms']:.1f} ms (median of "
+        f"{DRYRUN_TIMED_STEPS}: {[round(t, 1) for t in real['ms_all']]}) "
+        f"against the roofline's terms: compute {compute_ms:.3f} ms, "
+        f"memory {memory_ms:.3f} ms (unfused bytes accessed "
+        f"{_gb(ca['bytes accessed']):.2f} GB), collective 0 ms "
+        f"({coll_wire:.0f} wire bytes on one rank): "
+        f"{real['ms'] / max(compute_ms, memory_ms):.2f}x the bound; "
+        f"real part {real_s:.1f} s; the child {res['wall_s']:.1f} s, "
+        f"beside the other phases ({waited_s:.1f} s from its start to "
+        f"here); {smi}")
+    require(ca["flops"] == real["flops"], f"the dry run's FLOPs "
+            f"{ca['flops']} differ from FlopCounterMode's {real['flops']}")
+    require(ma["argument_size_in_bytes"] == real["args"], f"the dry run's "
+            f"argument bytes {ma['argument_size_in_bytes']} differ from the "
+            f"real step's {real['args']}")
+    lo, hi = DRYRUN_PEAK_RATIO
+    require(lo <= ratio <= hi, f"the dry run's peak is {ratio:.3f}x the "
+            f"real step's (range {DRYRUN_PEAK_RATIO})")
+    require(real["ms"] >= compute_ms, f"the step ({real['ms']:.3f} ms) beat "
+            f"its compute bound ({compute_ms:.3f} ms)")
+    require(coll_wire == 0, "a one-rank step sent bytes")
+    out["one_card"] = {
+        "dry": {"args": ma["argument_size_in_bytes"],
+                "temp": ma["temp_size_in_bytes"], "peak": dry_peak,
+                "flops": ca["flops"], "bytes_accessed": ca["bytes accessed"],
+                "lower_s": card["lower_s"]},
+        "real": real, "peak_ratio": ratio, "compute_ms": compute_ms,
+        "memory_ms": memory_ms}
+    return out
+
+
 # --------------------------------------------------------- unit blockers
 UNITS = ("MXU", "VPU", "SFU", "LSU")
 # rows of 128 f32 that fill the card: 132 SMs x 2,048 resident threads
@@ -3356,6 +3627,7 @@ def phase_ops_timing(inputs):
 def main():
     from repro_torch.kernels import ssd_scan as sd
     smi = phase_device()
+    dryrun = start_dryrun()
     phase_build()
     card_tests = phase_card_tests()
     phase_kernel_checks()
@@ -3377,6 +3649,7 @@ def main():
     model_serving = phase_models(smi)
     training = phase_train(smi)
     meshed = phase_mesh(smi, training)
+    dry = phase_dryrun(smi, dryrun)
     big = timing["largest"]
     report = {"kernels": [{
         "name": "wave_dispatch", "route": "cuda",
@@ -3455,6 +3728,7 @@ def main():
     report["models"] = model_serving
     report["train"] = training
     report["mesh"] = meshed
+    report["dryrun"] = dry
     print(smi, flush=True)
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -41,6 +41,16 @@ H100_SXM = {
     "power_w": 700.0,
     "mufu_per_sm_per_clock": 16,
 }
+# The links a 256-GPU H100 mesh crosses (the dry run's collective term).
+# NVLink 4 inside an 8-GPU node: 18 links of 50 GB/s, 900 GB/s
+# bidirectional a GPU (NVIDIA's H100 data sheet, SXM part), so 450e9 B/s
+# each way.  Between nodes, NDR InfiniBand: one 400 Gb/s ConnectX-7 port a
+# GPU (NVIDIA's DGX H100 data sheet), so 50e9 B/s.
+H100_SXM.update({
+    "nvlink_bw": 450e9,              # B/s each way, inside a node
+    "ib_bw": 400e9 / 8,              # B/s a GPU, between nodes
+    "gpus_per_node": 8,
+})
 # the SM clock implied by the FP32 peak (132 SMs x 128 FFMA x 2 FLOP a
 # clock): 1.98 GHz, NVIDIA's boost clock for the SXM part
 H100_SXM["sm_clock_hz"] = H100_SXM["peak_fp32_flops"] / (

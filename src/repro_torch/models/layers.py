@@ -306,8 +306,10 @@ def full_attention(q, k, v, cfg: ModelConfig, axes: MeshAxes, *, causal: bool,
                          q.device_mesh, spec, shape=q.shape)
     if Hq % SH.axis_size(q.device_mesh, axes.model):
         # heads split unevenly: whole heads on every rank before the
-        # flatten, which DTensor cannot split by heads
+        # flatten, which DTensor cannot split by heads; the flatten's
+        # backward unflattens the gradient, so that too arrives whole
         out = sc(out, axes, "batch", None, None, None)
+        return SH.grad_placed_as_value(out.reshape(B, Sq, Hq * Dh))
     return out.reshape(B, Sq, Hq * Dh)
 
 

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import sharding as SH
 from repro_torch.models.layers import dense_init, full, normal, rms_norm
 from repro_torch.models.sharding import MeshAxes, replicated, sc
 
@@ -110,6 +111,72 @@ def ssd_step(state, x_t, dt_t, A, B_t, C_t):
     return y, new_state
 
 
+def _group_heads(Bg, h: int):
+    """(..., g, n) -> (..., h, n): each group's row repeated for its
+    ``h // g`` heads (``repeat_interleave`` over the group dimension, as
+    a broadcast and a reshape)."""
+    *lead, g, n = Bg.shape
+    return Bg.unsqueeze(-2).expand(*lead, g, h // g, n).reshape(*lead, h, n)
+
+
+def _per_head(fn, axes: MeshAxes, args, dims, out_dims, out_shapes):
+    """``fn`` on each rank's local shards of ``args`` (DTensors, entered
+    at ``dims``, the ``sc`` entries), its outputs leaving as DTensors at
+    ``out_dims`` of the whole ``out_shapes``.  An argument without a batch
+    dimension (``A``) is used on each batch rank's own rows, so its
+    gradient is partial over the batch axes.  The scan is independent
+    across the batch and the heads, so on a mesh it runs on local shards
+    with no communication, as GSPMD runs it: DTensor's rules for the
+    einsums' products over sharded batch and head dimensions read values
+    back to the host (a sync on the card, and no trace on fake
+    tensors)."""
+    mesh = args[0].device_mesh
+    # grad_placed_as_value: the gradient that a placement change's
+    # backward hands on is a strided shard, which a product's backward
+    # upstream cannot view
+    loc = [SH.to_region(sc(SH.grad_placed_as_value(a) if a.requires_grad
+                           else a, axes, *d), SH.resolve(d, axes),
+                        partial=() if "batch" in d else axes.batch)
+           for a, d in zip(args, dims)]
+    return tuple(SH.from_region(o, mesh, SH.resolve(d, axes), shape=shp)
+                 for o, d, shp in zip(fn(*loc), out_dims, out_shapes))
+
+
+def ssd_chunked_sharded(x, dt, A, B, C, chunk: int, axes: MeshAxes):
+    """:func:`ssd_chunked` on a mesh (batch over ``axes.batch``, heads over
+    ``axes.model``), on local shards (:func:`_per_head`); the groups of
+    ``B``/``C`` are expanded to the heads first.  The identity of
+    :func:`ssd_chunked` without an enabled ``axes``."""
+    if not axes.enabled:
+        return ssd_chunked(x, dt, A, B, C, chunk)
+    b, s, h, p = x.shape
+    n = B.shape[3]
+    heads = ("batch", None, "model", None)
+    return _per_head(
+        lambda *a: ssd_chunked(*a, chunk), axes,
+        (x, dt, A, _group_heads(B, h), _group_heads(C, h)),
+        (heads, ("batch", None, "model"), ("model",), heads, heads),
+        (heads, ("batch", "model", None, None)),
+        ((b, s, h, p), (b, h, p, n)))
+
+
+def ssd_step_sharded(state, x_t, dt_t, A, B_t, C_t, axes: MeshAxes):
+    """:func:`ssd_step` on a mesh, on local shards (see
+    :func:`ssd_chunked_sharded`); the identity of :func:`ssd_step` without
+    an enabled ``axes``."""
+    if not axes.enabled:
+        return ssd_step(state, x_t, dt_t, A, B_t, C_t)
+    h = x_t.shape[1]
+    heads = ("batch", "model", None)
+    return _per_head(
+        ssd_step, axes,
+        (state, x_t, dt_t, A, _group_heads(B_t, h), _group_heads(C_t, h)),
+        (("batch", "model", None, None), heads, ("batch", "model"),
+         ("model",), heads, heads),
+        (heads, ("batch", "model", None, None)),
+        (tuple(x_t.shape), tuple(state.shape)))
+
+
 # ---------------------------------------------------------------------------
 # full Mamba2 block
 # ---------------------------------------------------------------------------
@@ -186,8 +253,8 @@ def mamba_block(x, p, cfg: ModelConfig, axes: MeshAxes):
     # ssd_dtype="bf16": x/B/C operands in bf16 through the intra-chunk
     # matrix work; decay/statistics stay fp32 inside ssd_chunked
     sdt = f32 if cfg.ssd_dtype == "fp32" else cfg.compute_dtype
-    y, ssm_state = ssd_chunked(xin.to(sdt), dt, A, Bm.to(sdt), Cm.to(sdt),
-                               cfg.ssm_chunk)
+    y, ssm_state = ssd_chunked_sharded(xin.to(sdt), dt, A, Bm.to(sdt),
+                                       Cm.to(sdt), cfg.ssm_chunk, axes)
     y = y.to(f32) + (p["D"].to(f32)[:, None] * xin.to(f32))
     y = y.to(cd).reshape(B_, S, di)
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
@@ -218,8 +285,8 @@ def mamba_block_decode(x, p, cfg: ModelConfig, axes: MeshAxes, state):
     C_t = conv_out[:, di + g * n:].reshape(B_, g, n)
     dt = F.softplus(dt_raw.to(f32) + p["dt_bias"].to(f32))
     A = -torch.exp(p["A_log"].to(f32))
-    y, new_ssm = ssd_step(ssm_state.to(f32), x_t.to(f32), dt, A,
-                          B_t.to(f32), C_t.to(f32))
+    y, new_ssm = ssd_step_sharded(ssm_state.to(f32), x_t.to(f32), dt, A,
+                                  B_t.to(f32), C_t.to(f32), axes)
     y = y + p["D"].to(f32)[:, None] * x_t.to(f32)
     y = y.to(cd).reshape(B_, di)
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)

@@ -139,7 +139,9 @@ def distribute(t: torch.Tensor, mesh, spec, *, what: str = "tensor",
                              src_data_rank=src_data_rank)
 
 
-def _resolve(dims, axes: MeshAxes) -> P:
+def resolve(dims, axes: MeshAxes) -> P:
+    """The ``P`` that ``sc``'s ``dims`` name ("batch"/"model" resolved via
+    ``axes``)."""
     out = []
     for d in dims:
         if d == "batch":
@@ -166,7 +168,7 @@ def sc(x, axes: MeshAxes, *dims):
         raise TypeError(f"sc: a plain {type(x).__name__} of shape "
                         f"{tuple(x.shape)} under an enabled MeshAxes; every "
                         "tensor of a sharded model is a DTensor")
-    want = placements(x.device_mesh, _resolve(dims, axes), x.dim())
+    want = placements(x.device_mesh, resolve(dims, axes), x.dim())
     if tuple(x.placements) == want:
         return x
     return x.redistribute(x.device_mesh, want)
@@ -238,6 +240,30 @@ class _MeanOver(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad / ctx.n, None, None
+
+
+class _GradPlacedAsValue(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.mesh, ctx.placements = x.device_mesh, tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if tuple(grad.placements) != ctx.placements:
+            grad = grad.redistribute(ctx.mesh, ctx.placements)
+        # a redistribution along an inner dimension leaves a strided
+        # local shard, which a view's backward cannot view
+        return grad.contiguous()
+
+
+def grad_placed_as_value(x: DTensor) -> DTensor:
+    """``x`` itself; backward, its gradient redistributed to ``x``'s
+    placements and made contiguous before it flows on.  For a view whose
+    backward DTensor cannot run from the placement (an unflatten into
+    heads that do not divide over an axis) or the strides (a local shard
+    sliced along an inner dimension) the gradient arrives in."""
+    return _GradPlacedAsValue.apply(x)
 
 
 def copy_to(x, groups):

@@ -129,6 +129,12 @@ def _ce_chunk_gather(hc, lc, embed, axes: MeshAxes):
     labelled tokens); ``lc < 0`` marks an unlabelled position.  The
     baseline: the gold logit is taken from logits gathered over the
     vocab's shards (:func:`_ce_chunk_vocab_parallel` avoids that)."""
+    # the table whole over its d_model (the ZeRO gather): with the rows'
+    # d_model sharded over the axes that shard the batch, DTensor's
+    # cheapest plan for the einsum is to gather the batch and compute
+    # every rank's (B, qc, V) logits in full
+    if isinstance(embed, DTensor):
+        embed = sc(SH.grad_placed_as_value(embed), axes, "model", None)
     logits = torch.einsum("bqd,vd->bqv", hc.to(torch.float32),
                           embed.to(torch.float32))
     logits = sc(logits, axes, "batch", None, "model")
@@ -140,7 +146,17 @@ def _ce_chunk_gather(hc, lc, embed, axes: MeshAxes):
     # over the model axis first, the (B, qc, V) all-gather that GSPMD
     # inserts here too
     full = sc(logits, axes, "batch", None, None)
-    gold = torch.gather(full, -1, lbl[..., None])[..., 0]
+    if isinstance(full, DTensor):
+        # on each rank's own rows: DTensor's rule for the gather's
+        # backward (a scatter) replicates its (B, qc, V) gradient over
+        # the batch axes, every rank holding the whole batch's
+        b = axes.bspec
+        gold = SH.from_region(torch.gather(
+            SH.to_region(full, P(b, None, None)), -1,
+            SH.to_region(lbl, P(b, None))[..., None])[..., 0],
+            full.device_mesh, P(b, None))
+    else:
+        gold = torch.gather(full, -1, lbl[..., None])[..., 0]
     tok_loss = torch.where(mask, lse - gold, 0.0)
     return torch.sum(tok_loss), torch.sum(mask.to(torch.float32))
 

@@ -13,13 +13,19 @@ On a mesh the parameters are DTensors and autograd returns DTensor
 gradients; one that comes back partial (a replicated weight used on each
 batch rank's own tokens) or otherwise placed is redistributed to its
 parameter's placements before the update, which sums it over the mesh.
+A microbatch whose rows do not divide over the model's batch axes (256
+rows in 16 microbatches over (pod, data) = 32 ranks) runs over the inner
+batch axes that its rows divide over, replicated over the outer ones, as
+XLA's padded shards spread it: one row a device either way.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch.distributed.tensor import DTensor
 
-from repro_torch.models.sharding import replicated
+from repro_torch.models.sharding import axis_size, placements, replicated
 from repro_torch.optim import adamw
 
 
@@ -31,6 +37,26 @@ def _split(x, n: int):
     if b % n:
         raise ValueError(f"batch {b} % microbatches {n} != 0")
     return x.reshape(b // n, n, *x.shape[1:]).movedim(1, 0)
+
+
+def _microbatch_axes(axes, mesh, rows: int):
+    """``axes`` with its batch axes cut, outermost first, to those that
+    ``rows`` divides over."""
+    batch = list(axes.batch)
+    while batch and rows % axis_size(mesh, tuple(batch)):
+        batch.pop(0)
+    return axes.replace(batch=tuple(batch))
+
+
+@contextlib.contextmanager
+def _batch_axes(model, axes):
+    """``model`` runs with ``axes`` inside (forward and the backward's
+    recomputation both read ``model.axes``)."""
+    kept, model.axes = model.axes, axes
+    try:
+        yield
+    finally:
+        model.axes = kept
 
 
 def _nest(names, values) -> dict:
@@ -82,6 +108,15 @@ def make_train_step(model, opt_cfg: adamw.AdamWConfig,
             loss, metrics, grads = grad_fn(batch)
             metrics = {k: v.detach() for k, v in metrics.items()}
         else:
+            mb_axes = model.axes
+            if mb_axes.enabled:
+                rows = next(iter(batch.values())).shape[0] // n
+                mb_axes = _microbatch_axes(mb_axes, model.mesh, rows)
+                if mb_axes != model.axes:   # the rows over those axes only
+                    batch = {k: v.redistribute(model.mesh, placements(
+                        model.mesh, (mb_axes.bspec,), v.dim()))
+                        if isinstance(v, DTensor) else v
+                        for k, v in batch.items()}
             mbs = {k: _split(v, n) for k, v in batch.items()}
             acc = [torch.zeros_like(p, dtype=torch.float32,
                                     memory_format=torch.contiguous_format)
@@ -89,7 +124,8 @@ def make_train_step(model, opt_cfg: adamw.AdamWConfig,
             lsum = replicated(torch.zeros((), dtype=torch.float32,
                                           device=model.device), params[0])
             for i in range(n):
-                l, _, g = grad_fn({k: v[i] for k, v in mbs.items()})
+                with _batch_axes(model, mb_axes):
+                    l, _, g = grad_fn({k: v[i] for k, v in mbs.items()})
                 acc = [a + gg.to(torch.float32) for a, gg in zip(acc, g)]
                 lsum = lsum + l
             grads = [a / n for a in acc]

@@ -69,7 +69,9 @@ def test_package_has_the_slice_modules():
                  "train", "train.serve", "tree_util", "optim",
                  "optim.adamw", "optim.compression", "data", "data.pipeline",
                  "checkpoint", "checkpoint.checkpoint", "train.train_loop",
-                 "launch", "launch.train", "launch.mesh", "train.pipeline"):
+                 "launch", "launch.train", "launch.mesh", "train.pipeline",
+                 "analysis.hlo_stats", "analysis.report", "launch.dryrun",
+                 "ops", "ops.corpus", "runtime", "runtime.fault_tolerance"):
         assert f"repro_torch.{name}" in mods, name
 
 

@@ -11,7 +11,10 @@ numpy:
     allows; ``compressed_psum_tree`` is ``psum_int8`` leaf by leaf;
   * ``pipeline_apply`` with 4 stages over ``pod`` and 6 microbatches of an
     8-layer tanh stack, within ``PIPE_TOL`` (1e-5) of the sequential stack
-    and of the reference's pipeline;
+    and of the reference's pipeline; so are the gradients of a scalar loss
+    (the outputs against a fixed cotangent) for the weights, the biases
+    and ``xs``, against ``torch.autograd.grad`` of the sequential stack
+    and the reference's ``jax.grad`` of its pipeline;
   * ``decode_attention`` with the cache sequence-sharded over a 4-rank
     ``model`` axis (minitron smoke, f32), within ``DECODE_TOL`` (1e-4) of
     the unsharded port and of the reference's sharded call; and a Qwen3
@@ -52,6 +55,8 @@ def _inputs(tmp: Path):
             (PIPE_L, PIPE_D))).astype(np.float32),
         "pipe_xs": rng.standard_normal(
             (PIPE_MICRO, PIPE_B, PIPE_D)).astype(np.float32),
+        "pipe_ct": rng.standard_normal(
+            (PIPE_MICRO, PIPE_B, PIPE_D)).astype(np.float32),
         "dec_q": rng.standard_normal((DECODE_B, 1, hq, dh)).astype(np.float32),
         "dec_k": rng.standard_normal(
             (DECODE_B, DECODE_S, hkv, dh)).astype(np.float32),
@@ -74,7 +79,7 @@ def _apply_stack(params, x):
 def _check_collectives(tmp: Path) -> dict:
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
-    from torch.distributed.tensor import Replicate, distribute_tensor
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 
     from repro_torch.configs.base import load_config
     from repro_torch.launch.mesh import make_host_mesh, set_mesh
@@ -119,13 +124,25 @@ def _check_collectives(tmp: Path) -> dict:
     out["pipe"] = got.full_tensor()
     out["pipe_seq"] = torch.stack([_apply_stack(layers, xi)
                                    for xi in inp["pipe_xs"]])
-    try:   # forward only: a gradient through the sends is refused
-        pipeline_apply(_apply_stack, split_stages(layers, WORLD),
-                       inp["pipe_xs"].clone().requires_grad_(), mesh,
-                       axis="pod")
-        out["pipe_grad_refused"] = False
-    except NotImplementedError:
-        out["pipe_grad_refused"] = True
+    # gradients of sum(outputs * ct) through the sends, against the
+    # sequential stack's
+    stacked = split_stages(layers, WORLD)
+    leaves = {k: distribute_tensor(v, mesh, [Shard(0)]).requires_grad_()
+              for k, v in stacked.items()}
+    xs = distribute_tensor(inp["pipe_xs"], mesh, [Replicate()])
+    xs.requires_grad_()
+    ct = distribute_tensor(inp["pipe_ct"], mesh, [Replicate()])
+    got = pipeline_apply(_apply_stack, leaves, xs, mesh, axis="pod")
+    gw, gb, gx = torch.autograd.grad((got * ct).sum(),
+                                     [leaves["w"], leaves["b"], xs])
+    out["pipe_grad"] = {"w": gw.full_tensor().reshape(inp["pipe_w"].shape),
+                        "b": gb.full_tensor().reshape(inp["pipe_b"].shape),
+                        "xs": gx.full_tensor()}
+    seq = {k: v.clone().requires_grad_() for k, v in layers.items()}
+    sx = inp["pipe_xs"].clone().requires_grad_()
+    sy = torch.stack([_apply_stack(seq, xi) for xi in sx])
+    out["pipe_grad_seq"] = dict(zip(("w", "b", "xs"), torch.autograd.grad(
+        (sy * inp["pipe_ct"]).sum(), [seq["w"], seq["b"], sx])))
 
     # sequence-sharded decode attention over "model"
     mesh = init_device_mesh("cpu", (WORLD,), mesh_dim_names=("model",))
@@ -221,6 +238,17 @@ with jax.set_mesh(mesh):
         apply_stack, p, x, mesh, axis="pod"))(split_stages(layers, 4),
                                               jnp.asarray(inp["pipe_xs"]))
 out["pipe"] = np.asarray(pipe)
+ct = jnp.asarray(inp["pipe_ct"])
+
+def pipe_loss(p, x):
+    return jnp.sum(pipeline_apply(apply_stack, p, x, mesh, axis="pod") * ct)
+
+with jax.set_mesh(mesh):
+    gp, gx = jax.jit(jax.grad(pipe_loss, argnums=(0, 1)))(
+        split_stages(layers, 4), jnp.asarray(inp["pipe_xs"]))
+out["pipe_gw"] = np.asarray(gp["w"]).reshape(inp["pipe_w"].shape)
+out["pipe_gb"] = np.asarray(gp["b"]).reshape(inp["pipe_b"].shape)
+out["pipe_gxs"] = np.asarray(gx)
 
 mesh = jax.make_mesh((4,), ("model",),
                      axis_types=(jax.sharding.AxisType.Auto,))
@@ -289,7 +317,12 @@ def test_pipeline_matches_sequential_and_reference(results):
     np.testing.assert_allclose(got, ref["pipe"], atol=PIPE_TOL,
                                rtol=PIPE_TOL)
     assert port["pipe_placements"] == [("Replicate", None)]
-    assert port["pipe_grad_refused"]
+    for k, ref_k in (("w", "pipe_gw"), ("b", "pipe_gb"), ("xs", "pipe_gxs")):
+        g = port["pipe_grad"][k].numpy()
+        np.testing.assert_allclose(g, port["pipe_grad_seq"][k].numpy(),
+                                   atol=PIPE_TOL, rtol=PIPE_TOL, err_msg=k)
+        np.testing.assert_allclose(g, ref[ref_k], atol=PIPE_TOL,
+                                   rtol=PIPE_TOL, err_msg=k)
 
 
 def test_seq_sharded_decode_matches_unsharded_and_reference(results):
