@@ -12,6 +12,15 @@ drives the port's paths on the card:
   over the full ``TEST_ISA`` on all three simulated uarches runs with the
   ``cuda`` backend, exported with ``model_io``, and its XML and JSON must be
   byte-identical to the same campaign on the ``torch`` backend on the CPU.
+* **the lane mesh.**  ``SimMachine(devices=1)`` on ``sim_skl`` gives the
+  campaign's XML; the same campaign with every machine on two logical
+  devices of the card (``("cuda:0", "cuda:0")``: each chunk of at least
+  ``2 x min_lanes`` lanes split into two lane blocks, one launch each;
+  also on ``cuda:0`` and ``cuda:1`` when the host has a second card)
+  gives its XML and JSON byte for byte, the widest chunk's blocks equal
+  to the plain version, its wall, launches and summed kernel time beside
+  the one-device campaign's; in the corpus phase the first ``sim_skl``
+  shard evaluated at that placement equals the card's rows bit for bit.
 * **predict -> serve -> query.**  The campaign's three models are served
   by ``start_server(predict_backend="cuda")`` to a JSON and a binary
   client (the README's block and 1,024 random blocks a uarch); the
@@ -458,17 +467,11 @@ def phase_kernel_checks():
 
 
 def phase_main_path():
-    from repro_torch.core import model_io
     from repro_torch.core.engine import Campaign
     from repro_torch.core.isa import TEST_ISA
     from repro_torch.core.simulator import SimMachine
     from repro_torch.core.uarch import SIM_UARCHES
     from repro_torch.kernels import wave_dispatch as wd
-
-    def export(res, name):
-        model = res.models[name]
-        model.run_seconds = 0.0
-        return model_io.to_xml(model, TEST_ISA), model_io.to_json(model)
 
     machines = [SimMachine(ua, TEST_ISA, backend="cuda")
                 for ua in SIM_UARCHES.values()]
@@ -506,8 +509,8 @@ def phase_main_path():
                           for ua in SIM_UARCHES.values()], TEST_ISA)
     cpu_wall = time.perf_counter() - t0
     for name in SIM_UARCHES:
-        xml, js = export(res, name)
-        cxml, cjs = export(cpu, name)
+        xml, js = _export(res.models[name])
+        cxml, cjs = _export(cpu.models[name])
         require(xml == cxml, f"{name}: XML differs from the CPU torch backend")
         require(js == cjs, f"{name}: JSON differs from the CPU torch backend")
         log(f"[main] {name}: XML ({len(xml)} bytes) and JSON "
@@ -655,6 +658,191 @@ def phase_breakdown():
             f"{k[:48]} {v / 1e3:.2f} ms" for k, v in top)
         if busy else "[breakdown] the profiler recorded no device time: "
         "device busy share not measured")
+
+
+# ----------------------------------------------------------- lane mesh
+LANES_PLACEMENT = ("cuda:0", "cuda:0")   # two lane blocks on one card
+
+
+def _export(model):
+    """A campaign model's XML and JSON, ``run_seconds`` 0."""
+    from repro_torch.core import model_io
+    from repro_torch.core.isa import TEST_ISA
+    model.run_seconds = 0.0
+    return model_io.to_xml(model, TEST_ISA), model_io.to_json(model)
+
+
+@contextlib.contextmanager
+def _sim_devices(spec):
+    """``REPRO_SIM_DEVICES`` set to ``spec`` inside the block: the
+    placement ``Campaign.run`` partitions among its machines."""
+    from repro_torch.core.device_mesh import ENV_DEVICES
+    old = os.environ.get(ENV_DEVICES)
+    os.environ[ENV_DEVICES] = spec
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(ENV_DEVICES, None)
+        else:
+            os.environ[ENV_DEVICES] = old
+
+
+@contextlib.contextmanager
+def _chunk_log(chunks):
+    """Every chunk the wave executors dispatch in this block appends its
+    real lanes, its lane blocks and their launch arguments (the
+    executor's ``record`` entries, one a block) to ``chunks``."""
+    from repro_torch.core import batch_sim as bs
+    dispatch = bs._DeviceExec.dispatch
+
+    def logged(self, pk, n_use, record=None):
+        record = [] if record is None else record
+        k0 = len(record)
+        out = dispatch(self, pk, n_use, record)
+        chunks.append({"exec": self, "lanes": pk.E, "blocks": n_use,
+                       "args": record[k0:]})
+        return out
+
+    bs._DeviceExec.dispatch = logged
+    try:
+        yield
+    finally:
+        bs._DeviceExec.dispatch = dispatch
+
+
+def _lanes_campaign(placement, main_models):
+    """The full ``TEST_ISA`` campaign on the three uarches, every machine
+    on ``placement`` (one device: the one-device path, warm); its XML and
+    JSON must equal ``[main]``'s, and every chunk of at least ``mesh width
+    x min_lanes`` lanes must run as that many blocks, one launch each."""
+    from repro_torch.core.batch_sim import DEFAULT_MIN_LANES
+    from repro_torch.core.engine import Campaign
+    from repro_torch.core.isa import TEST_ISA
+    from repro_torch.core.simulator import SimMachine
+    from repro_torch.core.uarch import SIM_UARCHES
+    from repro_torch.kernels import wave_dispatch as wd
+
+    machines = [SimMachine(ua, TEST_ISA, backend="cuda", devices=placement)
+                for ua in SIM_UARCHES.values()]
+    for m in machines:
+        m.launched_args = []
+    chunks = []
+    n = len(placement)
+    with _sim_devices(",".join(placement * len(machines))), \
+            _chunk_log(chunks):
+        torch.cuda.synchronize()
+        wd.launches = 0
+        t0 = time.perf_counter()
+        res = Campaign().run(machines, TEST_ISA)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = wd.launches
+    require(res.quarantined == 0, f"quarantined: {res.quarantine}")
+    require(launches == sum(len(m.launched_args) for m in machines)
+            == sum(c["blocks"] for c in chunks),
+            f"{launches} launches vs the blocks kept")
+    for c in chunks:
+        want = max(1, min(n, c["lanes"] // DEFAULT_MIN_LANES))
+        require(c["blocks"] == want == len(c["args"]),
+                f"a {c['lanes']}-lane chunk ran as {c['blocks']} blocks "
+                f"({len(c['args'])} launches), not {want}")
+    stats = {}
+    for m in machines:
+        xml, js = _export(res.models[m.name])
+        mxml, mjs = _export(main_models[m.name])
+        require(xml == mxml and js == mjs,
+                f"{m.name}: XML/JSON at {placement} differ from [main]'s")
+        st = m.device_stats()
+        own = [c for c in chunks if c["exec"] is m._batch._device]
+        lanes = sum(c["lanes"] for c in own)
+        require(st["mesh"] is (n > 1) and st["devices"] == list(placement),
+                f"{m.name}: placement {st['devices']} mesh {st['mesh']}")
+        require(sum(c["lanes"] for c in st["per_device"].values()) == lanes
+                and st["kernel_calls"] == len(own),
+                f"{m.name}: per-device lanes {st['per_device']} vs the "
+                f"{lanes} lanes of {len(own)} chunks")
+        stats[m.name] = {"chunks": len(own), "lanes": lanes,
+                         "per_device": st["per_device"]}
+    wide = max(chunks, key=lambda c: (c["lanes"], c["args"][0][0].shape[0]))
+    err = kernel_ms = 0
+    for args in wide["args"]:
+        with torch.cuda.device(args[0].device):
+            err = max(err, kernel_vs_plain(args))
+    for c in chunks:
+        for args in c["args"]:
+            with torch.cuda.device(args[0].device):
+                kernel_ms += _time_ms(wd.wave_dispatch, args, reps=1)
+    split = sum(c["blocks"] > 1 for c in chunks)
+    return {"placement": list(placement), "wall_s": wall,
+            "launches": launches, "chunks": len(chunks),
+            "split_chunks": split, "campaign_kernel_ms": kernel_ms,
+            "widest_chunk": {"lanes": wide["lanes"],
+                             "blocks_SER": [list(a[5].shape)
+                                            for a in wide["args"]],
+                             "max_abs_err": err},
+            "machines": stats}
+
+
+def phase_lanes(main_models, main_wall, main_launches, timing, smi):
+    """The lane mesh on the card.  N = 1: ``SimMachine(devices=1)`` on
+    ``sim_skl`` gives ``[main]``'s XML.  N = 2: the full campaign with
+    every machine on two logical devices of ``cuda:0`` (and, with a second
+    card, on ``cuda:0`` and ``cuda:1``) gives ``[main]``'s XML and JSON,
+    each chunk of at least ``2 x min_lanes`` lanes split into two lane
+    blocks; the widest chunk's blocks against the plain version; walls,
+    launches and summed kernel ms beside the same campaign's on one
+    device, run just before it (warm, as it is: ``[main]``'s is the
+    process's first campaign)."""
+    from repro_torch.core.engine import Campaign
+    from repro_torch.core.isa import TEST_ISA
+    from repro_torch.core.simulator import SimMachine
+    from repro_torch.core.uarch import SIM_SKL
+
+    cards = torch.cuda.device_count()
+    one = SimMachine(SIM_SKL, TEST_ISA, backend="cuda", devices=1)
+    with _sim_devices("cuda:0"):
+        res = Campaign().run([one], TEST_ISA)
+    st = one.device_stats()
+    require(st["mesh"] is False and st["devices"] == ["cuda:0"],
+            f"N = 1: placement {st['devices']} mesh {st['mesh']}")
+    require(_export(res.models["sim_skl"])[0]
+            == _export(main_models["sim_skl"])[0],
+            "N = 1: sim_skl XML differs from [main]'s")
+    log(f"[lanes] N = 1: SimMachine(devices=1) on sim_skl, XML equal to "
+        f"[main]'s ({st['kernel_calls']} kernel calls on cuda:0)")
+    warm = _lanes_campaign(("cuda:0",), main_models)
+    require(warm["launches"] == main_launches,
+            f"N = 1 warm: {warm['launches']} launches, [main] "
+            f"{main_launches}")
+    log(f"[lanes] N = 1 on ('cuda:0',), warm: campaign XML and JSON "
+        f"byte-identical to [main]; {warm['chunks']} chunks, "
+        f"{warm['launches']} launches, wall {warm['wall_s']:.2f} s, kernel "
+        f"device time summed over the launches "
+        f"{warm['campaign_kernel_ms']:.3f} ms ({smi})")
+    runs = [_lanes_campaign(LANES_PLACEMENT, main_models)]
+    if cards > 1:
+        runs.append(_lanes_campaign(("cuda:0", "cuda:1"), main_models))
+    for r in runs:
+        w = r["widest_chunk"]
+        log(f"[lanes] N = 2 on {tuple(r['placement'])}: campaign XML and "
+            f"JSON byte-identical to [main]; {r['chunks']} chunks, "
+            f"{r['split_chunks']} split in two lane blocks, "
+            f"{r['launches']} launches (N = 1: {warm['launches']}, [main]: "
+            f"{main_launches}); wall {r['wall_s']:.2f} s (N = 1 warm: "
+            f"{warm['wall_s']:.2f} s, [main] cold: {main_wall:.2f} s); "
+            f"kernel device time summed over the launches "
+            f"{r['campaign_kernel_ms']:.3f} ms (N = 1: "
+            f"{warm['campaign_kernel_ms']:.3f} ms, [main]: "
+            f"{timing['campaign_kernel_ms']:.3f} ms); widest "
+            f"chunk {w['lanes']} lanes as blocks (S, E, R) = "
+            f"{w['blocks_SER']}, each equal to the plain version ({smi})")
+    log(f"[lanes] cards on this host: {cards}; "
+        + ("N = 2 also ran on cuda:0 and cuda:1" if cards > 1 else
+           "N > 1 ran on logical devices of cuda:0 (two lane blocks a "
+           "chunk on one card); distinct cards untested"))
+    return {"cards": cards, "n1_kernel_calls": st["kernel_calls"],
+            "n1": warm, "n2": runs}
 
 
 # ------------------------------------------------------ predict -> serve
@@ -1285,6 +1473,45 @@ def _artifact(results, *, scores_only=False):
     return json.dumps(art, sort_keys=True, indent=1)
 
 
+def _lanes_corpus(sub, firsts, results, cpu_models, out_dir):
+    """``[lanes]`` on the corpus: the first ``sim_skl`` shard (in ``sub``)
+    evaluated with the machine's waves on two logical devices of the card
+    and the CPU-characterized model; its rows must equal ``[corpus]``'s
+    (``results``) bit for bit."""
+    from repro_torch.corpus import evaluate_corpus
+    skl = next(s for s in firsts if s["uarch"] == "sim_skl")
+    machines = []
+    t0 = time.perf_counter()
+    with _corpus_hooks(_Widest(lambda a: a[0].shape[1]),
+                       _Widest(lambda a: a[0].shape[0]), machines, []):
+        lanes = evaluate_corpus(
+            sub, uarches=["sim_skl"], backend="cuda",
+            devices=LANES_PLACEMENT, predict_backend="cuda",
+            models={"sim_skl": cpu_models["sim_skl"]},
+            wave_width=CORPUS_WAVE, out_dir=out_dir)
+    seconds = time.perf_counter() - t0
+    got = lanes["uarches"]["sim_skl"]
+    want = results["uarches"]["sim_skl"][:skl["n_blocks"]]
+    require([r["id"] for r in got] == [r["id"] for r in want]
+            and np.array_equal(_row_bits(got), _row_bits(want)),
+            f"[lanes] {skl['name']} on {LANES_PLACEMENT}: rows differ from "
+            f"[corpus]'s")
+    (m,) = machines
+    st = m.device_stats()
+    per = st["per_device"][LANES_PLACEMENT[0]]
+    require(st["mesh"] is True and st["devices"] == list(LANES_PLACEMENT)
+            and per["lanes"] >= skl["n_blocks"]
+            and per["kernel_calls"] > st["kernel_calls"],
+            f"[lanes] corpus machine placement {st}")
+    log(f"[lanes] corpus: evaluate_corpus(devices={LANES_PLACEMENT}) on "
+        f"{skl['name']} ({skl['n_blocks']} blocks): measured and predicted "
+        f"float64 bits equal to [corpus]'s rows; {st['kernel_calls']} "
+        f"chunks as {per['kernel_calls']} lane blocks, {seconds:.2f} s")
+    return {"shard": skl["name"], "blocks": skl["n_blocks"],
+            "seconds": seconds, "chunks": st["kernel_calls"],
+            "lane_blocks": per["kernel_calls"]}
+
+
 def phase_corpus():
     """The README's corpus evaluation on the card, at full width: seed 0,
     10,000 blocks a uarch on the three ``SIM_UARCHES``, shards of 2,048,
@@ -1292,9 +1519,11 @@ def phase_corpus():
     predictions through the port-bound kernel (traced: the walls of each
     stage come from the port's spans).  Then: a resumed run launches
     nothing and gives the same scores; the first shard of each uarch
-    equals the CPU ``torch`` backend row for row; ``sim_skl`` served over
-    ``client_predict_fn`` gives the in-process artifact on both wires; and
-    the widest launch of each kernel is held against its plain version."""
+    equals the CPU ``torch`` backend row for row, and ``sim_skl``'s on two
+    logical devices of the card (``[lanes]``) equals the card's rows;
+    ``sim_skl`` served over ``client_predict_fn`` gives the in-process
+    artifact on both wires; and the widest launch of each kernel is held
+    against its plain version."""
     import hashlib
     import tempfile
 
@@ -1460,6 +1689,9 @@ def phase_corpus():
             f"predicted float64 bits equal to the CPU torch backend "
             f"(characterization and evaluation {cpu_s:.1f} s on the CPU)")
 
+        out_lanes = _lanes_corpus(sub, firsts, results, cpu_models,
+                                  tmp / "lanes")
+
         # sim_skl served over both wires, against the in-process path
         mdir = tmp / "models"
         mdir.mkdir()
@@ -1489,8 +1721,8 @@ def phase_corpus():
             require(st["device_waves"] > 0 and st["device_fallbacks"] == 0,
                     f"{wire} wire predictor stats {st}")
         served_s = time.perf_counter() - t0
-        log(f"[corpus] sim_skl through client_predict_fn over "
-            f"local_service(predict_backend='cuda'): artifact "
+        log(f"[corpus] sim_skl through client_predict_fn "
+            f"over local_service(predict_backend='cuda'): artifact "
             f"byte-identical to the in-process one on the json and binary "
             f"wires ({served_s:.1f} s for the three runs)")
 
@@ -1537,7 +1769,7 @@ def phase_corpus():
                                "kendall_tau": sc["kendall_tau"]}
                           for ua, sc in scores.items()},
                "widest_wave_dispatch": wide_wave,
-               "widest_port_bound": wide_pb}
+               "widest_port_bound": wide_pb, "lanes": out_lanes}
     return out, tracer
 
 
@@ -3626,30 +3858,43 @@ def phase_ops_timing(inputs):
 
 def main():
     from repro_torch.kernels import ssd_scan as sd
-    smi = phase_device()
+    walls = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    smi = timed("device", phase_device)
     dryrun = start_dryrun()
-    phase_build()
-    card_tests = phase_card_tests()
-    phase_kernel_checks()
-    machines, wall, launches, models = phase_main_path()
-    timing = phase_main_chunks(machines, launches)
-    phase_breakdown()
-    serve_launches, served_waves, wide_args, serve = phase_serve(models)
-    serve_kernel = phase_serve_kernel(served_waves, wide_args)
-    scripts = phase_scripts(models)
-    corpus, corpus_trace = phase_corpus()
-    trace_report = phase_trace_report(corpus_trace, corpus, smi)
+    timed("build", phase_build)
+    card_tests = timed("card-tests", phase_card_tests)
+    timed("kernel", phase_kernel_checks)
+    machines, wall, launches, models = timed("main", phase_main_path)
+    timing = timed("main-chunks", phase_main_chunks, machines, launches)
+    lanes = timed("lanes", phase_lanes, models, wall, launches, timing, smi)
+    timed("breakdown", phase_breakdown)
+    serve_launches, served_waves, wide_args, serve = timed(
+        "serve", phase_serve, models)
+    serve_kernel = timed("serve-kernel", phase_serve_kernel, served_waves,
+                         wide_args)
+    scripts = timed("scripts", phase_scripts, models)
+    corpus, corpus_trace = timed("corpus", phase_corpus)
+    trace_report = timed("trace-report", phase_trace_report, corpus_trace,
+                         corpus, smi)
     del corpus_trace
-    errs = phase_blockers()
-    blocker_launches, profiles = phase_hardware()
-    blocker_times = phase_blocker_timing()
-    ops_launches, ops_errs, ops_inputs, ssd_shares = phase_ops()
-    ops_times = phase_ops_timing(ops_inputs)
+    errs = timed("blockers", phase_blockers)
+    blocker_launches, profiles = timed("hardware", phase_hardware)
+    blocker_times = timed("timing", phase_blocker_timing)
+    ops_launches, ops_errs, ops_inputs, ssd_shares = timed("ops", phase_ops)
+    ops_times = timed("ops-timing", phase_ops_timing, ops_inputs)
     del ops_inputs
-    model_serving = phase_models(smi)
-    training = phase_train(smi)
-    meshed = phase_mesh(smi, training)
-    dry = phase_dryrun(smi, dryrun)
+    model_serving = timed("models", phase_models, smi)
+    training = timed("train", phase_train, smi)
+    meshed = timed("mesh", phase_mesh, smi, training)
+    dry = timed("dryrun", phase_dryrun, smi, dryrun)
+    log(f"[walls] seconds a phase ({smi}): {json.dumps(walls)}")
     big = timing["largest"]
     report = {"kernels": [{
         "name": "wave_dispatch", "route": "cuda",
@@ -3664,7 +3909,8 @@ def main():
         "campaign_kernel_ms": timing["campaign_kernel_ms"],
         "campaign_wall_s": wall,
         "corpus_launches": corpus["launches"]["wave_dispatch"],
-        "corpus_widest": corpus["widest_wave_dispatch"]}]}
+        "corpus_widest": corpus["widest_wave_dispatch"],
+        "lanes": dict(lanes, corpus=corpus["lanes"])}]}
     replaces = {"MXU": 27, "VPU": 49, "SFU": 69, "LSU": 89}
     for unit in UNITS:
         d = blocker_times[unit]["default"]
@@ -3729,6 +3975,7 @@ def main():
     report["train"] = training
     report["mesh"] = meshed
     report["dryrun"] = dry
+    report["phase_s"] = walls
     print(smi, flush=True)
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -31,6 +31,7 @@ holds every wave against the reference package's backends.
 """
 from __future__ import annotations
 
+import functools
 import threading
 import time
 from collections import deque
@@ -38,7 +39,8 @@ from collections import deque
 import numpy as np
 import torch
 
-from repro_torch.core.device_mesh import device_key, dispatch_lock
+from repro_torch.core.device_mesh import (device_key, dispatch_lock,
+                                          lane_mesh, resolve_devices)
 from repro_torch.core.isa import IMM, ISA
 from repro_torch.core.simulator import Counters, _implicit_reg
 from repro_torch.core.uarch import UArch
@@ -213,35 +215,41 @@ class BatchSimMachine:
     Same observable contract as :class:`~repro_torch.core.simulator.SimMachine`
     (cycles + per-port μop counts, including harness overhead), plus
     :meth:`run_batch` — and bit-identical results to the scalar oracle on
-    both backends.  ``backend="cuda"`` needs a CUDA ``device`` and a card;
-    asking for it without one raises.  ``backend="torch"`` runs on any
-    ``device``."""
+    both backends and every placement.  ``device`` places the machine on
+    one device; ``devices`` (an integer count, ``"all"``, device names or
+    a sequence of devices, see
+    :func:`~repro_torch.core.device_mesh.resolve_devices`; resolved again
+    when the executor is built) on several: every chunk wide enough is
+    then split into per-device lane blocks.  ``devices`` together with a
+    ``device`` other than its default raises.  ``backend="cuda"`` needs a
+    CUDA device in every entry and a card; asking for it without one
+    raises.  ``backend="torch"`` runs on any device."""
 
     counters_available = True
 
     def __init__(self, uarch: UArch, isa: ISA, backend: str = "cuda",
                  device="cuda", table_index: UopTableIndex | None = None,
                  min_lanes: int = DEFAULT_MIN_LANES,
-                 lower_cache_entries: int | None = DEFAULT_LOWER_CACHE):
+                 lower_cache_entries: int | None = DEFAULT_LOWER_CACHE,
+                 devices=None):
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}")
-        device = torch.device(device)
-        if backend == "cuda":
-            if device.type != "cuda":
-                raise ValueError(f"the cuda backend runs on a CUDA device, "
-                                 f"not {device}")
-            if not torch.cuda.is_available():
-                raise RuntimeError("cuda backend requested but no CUDA "
-                                   "device is available")
+        if devices is not None and torch.device(device) != \
+                torch.device("cuda"):
+            raise ValueError("give device= or devices=, not both")
         self.uarch = uarch
         self.isa = isa
         self.name = uarch.name
         self.ports = uarch.ports
         self.backend = backend
+        # the placement spec, resolved when the executor is built; None
+        # places the machine on ``device`` alone
+        self.devices = devices
         self.device = device
+        self.device = self._placement()[0]
         # a padded chunk with fewer lanes than this runs on the scalar
         # oracle instead (results are bit-identical either way; set 1 to
-        # force the kernel)
+        # force the kernel); on several devices it bounds each lane block
         self.min_lanes = min_lanes
         self._comp: CompiledUArch = compile_uarch(uarch, isa, table_index)
         self._cells: dict = {}          # register name -> cell id
@@ -253,36 +261,64 @@ class BatchSimMachine:
         self.lowering_stats = {"hits": 0, "misses": 0, "evictions": 0}
         self._device = None             # lazy _DeviceExec
         # a list to append every launch's device inputs to (the argument
-        # tuple of each kernel call, as launched), or None to keep nothing
+        # tuple of each kernel call, one a lane block, as launched), or
+        # None to keep nothing
         self.launched_args: list | None = None
         # guards the machine's shared mutable host state (lowering-cache
         # LRU, recipe memo, lazy device/scalar init) across concurrent
         # run_batch callers; slot leasing has its own lock in _DeviceExec
         self._host_lock = threading.Lock()
 
+    def _placement(self) -> tuple:
+        """The resolved placement: ``devices``, else ``(device,)``; the
+        ``cuda`` backend's entries are checked here (each a CUDA device,
+        and a card present)."""
+        devs = (resolve_devices(self.devices) if self.devices is not None
+                else (torch.device(self.device),))
+        if not devs:
+            raise ValueError("a placement needs at least one device")
+        if self.backend == "cuda":
+            for d in devs:
+                if d.type != "cuda":
+                    raise ValueError(f"the cuda backend runs on a CUDA "
+                                     f"device, not {d}")
+            if not torch.cuda.is_available():
+                raise RuntimeError("cuda backend requested but no CUDA "
+                                   "device is available")
+            have = torch.cuda.device_count()
+            for d in devs:
+                if (d.index or 0) >= have:
+                    raise RuntimeError(f"{d} requested but the host has "
+                                       f"{have} CUDA device(s)")
+        return devs
+
     # ------------------------------------------------------------------
     def run(self, code) -> Counters:
         return self.run_batch([code])[0]
 
     def set_devices(self, devices) -> None:
-        """Adopt a campaign placement (a sequence of devices, see
-        :func:`repro_torch.core.device_mesh.partition`).  One device per
-        machine: the machine moves to the group's first device when it is
-        of the machine's own device type, so a machine built for the CPU
-        stays on the CPU.  Results are bit-identical for every placement."""
-        devs = tuple(torch.device(d) for d in devices or ())
-        if not devs or devs[0].type != self.device.type:
+        """Adopt a device placement (a count, ``"all"``, device names or a
+        sequence of devices, see
+        :func:`repro_torch.core.device_mesh.partition`); the executor is
+        rebuilt on the next wave.  A placement with an entry of another
+        device type than the machine's leaves the machine where it is, so
+        a machine built for the CPU stays on the CPU.  Results are
+        bit-identical for every placement."""
+        devs = resolve_devices(devices) if devices is not None else ()
+        if not devs or any(d.type != self.device.type for d in devs):
             return
         with self._host_lock:
-            if devs[0] != self.device:
-                self.device = devs[0]
-                self._device = None
+            self.devices = devices
+            self.device = devs[0]
+            self._device = None
 
     def device_stats(self) -> dict:
         """Device-kernel telemetry: kernel library loads (``compiles``),
-        kernel calls, the shape buckets seen so far, the device, and the
-        same counters per device (``per_device``, keyed by device name).
-        Empty until the first chunk reaches the device."""
+        kernel calls (one a chunk), the shape buckets seen so far, whether
+        lanes are split (``mesh``), the placement's device names
+        (``devices``) and per device name (``per_device``) its library
+        loads, kernel calls (one a lane block), real lanes and per-device
+        buckets.  Empty until the first chunk reaches the device."""
         if self._device is None:
             return {}
         return self._device.stats()
@@ -831,7 +867,8 @@ class BatchSimMachine:
         with self._host_lock:
             if self._device is None:
                 self._device = _DeviceExec(self._comp, self.backend,
-                                           self.device)
+                                           self._placement(),
+                                           self.min_lanes)
             return self._device
 
     def _pack_leased(self, dev, c, progs) -> tuple:
@@ -870,7 +907,8 @@ class BatchSimMachine:
                     pk, slot = self._pack_leased(dev, c, progs)
                 try:
                     with obs.span("wave.dispatch", lanes=len(c)):
-                        launched = dev.dispatch(pk, self.launched_args)
+                        launched = dev.dispatch(pk, slot.n_use,
+                                                self.launched_args)
                 except BaseException:
                     slot.release()
                     raise
@@ -900,37 +938,55 @@ class BatchSimMachine:
 
 
 class _DeviceExec:
-    """Per-machine device execution state: the device-resident μop mask
-    LUT, the per-device dispatch lock, telemetry, and recycled per-bucket
-    packing-buffer slots whose lease lasts until their chunk's results are
-    extracted."""
+    """Per-machine device execution state: the placement's devices, the
+    μop mask LUT on each, the per-device-subset dispatch lock, telemetry,
+    and recycled per-bucket packing-buffer slots whose lease lasts until
+    their chunk's results are extracted.
+
+    With more than one device (or a single card other than ``cuda:0``,
+    the reference's rule) the executor runs in **mesh mode**: a chunk is
+    padded to a lanes-divisible bucket width and split into equal
+    contiguous lane blocks of one bucket, block ``k`` on device ``k`` of
+    the placement, each launched on its device's current stream (the
+    reference runs one ``shard_map`` over the same blocks).  Slots are
+    pooled per ``(bucket, mesh width)``, so slots of different widths
+    never alias.  A placement may name one device twice: its blocks then
+    run one after the other in that device's stream order."""
 
     _BUCKETS_MAX = 8     # bucket slot-ring pool bound (LRU)
 
-    def __init__(self, comp: CompiledUArch, kind: str, device):
+    def __init__(self, comp: CompiledUArch, kind: str, devices,
+                 min_lanes: int = DEFAULT_MIN_LANES):
         self.comp = comp
         self.kind = kind
-        self.device = torch.device(device)
-        self.key = device_key(self.device)
-        self.lut = comp.device_mask_table(self.device)
-        self.dispatch_lock = dispatch_lock((self.device,))
+        self.devices = resolve_devices(devices)
+        self.keys = [device_key(d) for d in self.devices]
+        self.device = self.devices[0]
+        self.min_lanes = max(min_lanes, 1)
+        self.mesh_mode = len(self.devices) > 1 or (self.device.index or 0) > 0
+        self.n_mesh = len(self.devices) if self.mesh_mode else 1
+        self.dispatch_lock = dispatch_lock(self.devices)
         self.compiles = 0
         self.kernel_calls = 0
         self.buckets: set = set()
-        self.lanes = 0
+        # per device name: library loads, kernel calls and buckets of its
+        # lane blocks, and the real lanes they carried (a device named
+        # twice in the placement counts both its blocks)
+        self.per_device: dict = {
+            k: {"compiles": 0, "kernel_calls": 0, "lanes": 0,
+                "buckets": set()} for k in self.keys}
         self._lock = threading.Lock()   # guards slot leasing / ring LRU
-        self._rings: dict = {}   # bucket -> slot list (LRU by bucket)
+        self._rings: dict = {}   # (bucket, width) -> slot list (LRU)
         # per-device kernel time + straggler EWMA, fed by traced waves
         # only (see dispatch); they surface through stats()
         self.kernel_ns: dict = {}      # "device:<key>" -> total kernel ns
         self.straggler = StragglerDetector()
 
-    def _observe(self, t0_ns: int, dur_ns: int, **attrs) -> None:
-        """Traced-kernel callback: record the kernel's span on the device's
-        trace track (at the launch's host time, lasting the kernel's
-        interval), accumulate the device's kernel time and feed the
-        straggler EWMA with it."""
-        label = f"device:{self.key}"
+    def _observe(self, label: str, t0_ns: int, dur_ns: int, **attrs) -> None:
+        """Traced-kernel callback: record one lane block's kernel span on
+        its device's trace track ``label`` (at the launch's host time,
+        lasting the kernel's interval), accumulate the device's kernel
+        time and feed the straggler EWMA with it."""
         obs.emit_span("wave.kernel", t0_ns, dur_ns, track=label, **attrs)
         with self._lock:
             self.kernel_ns[label] = self.kernel_ns.get(label, 0) + dur_ns
@@ -940,45 +996,61 @@ class _DeviceExec:
         out = {"backend": self.kind, "compiles": self.compiles,
                "kernel_calls": self.kernel_calls,
                "buckets": sorted(self.buckets),
-               "mesh": False,
-               "devices": [self.key],
-               "per_device": {self.key: {
-                   "compiles": self.compiles,
-                   "kernel_calls": self.kernel_calls,
-                   "lanes": self.lanes,
-                   "buckets": sorted(self.buckets)}}}
+               "mesh": self.mesh_mode,
+               "devices": list(self.keys),
+               "per_device": {
+                   k: {"compiles": c["compiles"],
+                       "kernel_calls": c["kernel_calls"],
+                       "lanes": c["lanes"],
+                       "buckets": sorted(c["buckets"])}
+                   for k, c in self.per_device.items()}}
         with self._lock:
             if self.kernel_ns:   # only traced waves populate these
                 out["kernel_ns"] = dict(sorted(self.kernel_ns.items()))
                 out["stragglers"] = self.straggler.snapshot()
         return out
 
+    # -- lane blocks ----------------------------------------------------
+    def mesh_width(self, E0: int) -> int:
+        """Devices used for an ``E0``-lane chunk: capped so every lane
+        block keeps at least ``min_lanes`` lanes (the thin-chunk crossover
+        applies to the per-device block, not to the whole chunk)."""
+        return max(1, min(self.n_mesh, E0 // self.min_lanes))
+
     # -- buckets / buffer slots ----------------------------------------
     @staticmethod
-    def bucket_shape(S0: int, E0: int, R0: int) -> tuple:
-        return (_bucket(S0, 32), _bucket(E0, 8), _next_pow2(R0))
+    def _mesh_bucket(S0: int, E0: int, R0: int, n_use: int) -> tuple:
+        """The bucket of an ``E0``-lane chunk run as ``n_use`` lane blocks:
+        the lane width padded per block and multiplied back up, so every
+        device gets one equal ``e_dev``-lane block (a multiple of 4) of
+        one bucket; at ``n_use`` 1 it is the one-device bucket."""
+        e_dev = _bucket((E0 + n_use - 1) // n_use, 8)
+        return (_bucket(S0, 32), e_dev * n_use, _next_pow2(R0))
 
     def acquire(self, S0: int, E0: int, R0: int) -> "_BufSlot":
         """Lease a packing-buffer slot for one chunk.  A slot stays leased
         from here until :meth:`~_BufSlot.release` in ``_finalize_device``
         — through packing, kernel flight and extraction.  If every slot of
         the bucket is leased a new one is allocated: live slots are bounded
-        by the pipeline depth.  Mutex-guarded so concurrent ``run_batch``
-        callers can never double-lease a slot."""
-        shape = self.bucket_shape(S0, E0, R0)
+        by the pipeline depth.  The pool is keyed by ``(bucket, mesh
+        width)`` and the slot records its width.  Mutex-guarded so
+        concurrent ``run_batch`` callers can never double-lease a slot."""
+        n_use = self.mesh_width(E0)
+        shape = self._mesh_bucket(S0, E0, R0, n_use)
+        key = shape + (n_use,)
         with self._lock:
-            ring = self._rings.get(shape)
+            ring = self._rings.get(key)
             if ring is None:
                 while len(self._rings) >= self._BUCKETS_MAX:
                     self._rings.pop(next(iter(self._rings)))
-                ring = self._rings[shape] = []
+                ring = self._rings[key] = []
             else:
-                self._rings[shape] = self._rings.pop(shape)   # LRU touch
+                self._rings[key] = self._rings.pop(key)   # LRU touch
             for slot in ring:   # a released slot has been fully extracted
                 if not slot.leased:
                     slot.leased = True
                     return slot
-            slot = _BufSlot(self._alloc(*shape))
+            slot = _BufSlot(self._alloc(*shape), n_use)
             ring.append(slot)
             slot.leased = True
             return slot
@@ -991,79 +1063,104 @@ class _DeviceExec:
                 np.zeros((E, S, R), np.int32), np.zeros((E, S), np.int32))
 
     # -- dispatch -------------------------------------------------------
-    def upload(self, pk: _ChunkPack) -> tuple:
-        """The chunk's kernel inputs on the device, in the kernel's
-        row-major ``(S, E)`` / ``(S, E, R)`` layout: one blocking copy per
+    def upload(self, pk: _ChunkPack, lo: int, hi: int, device) -> tuple:
+        """Lane block ``[lo, hi)`` of the chunk's kernel inputs on
+        ``device``, in the kernel's row-major ``(S, E)`` / ``(S, E, R)``
+        layout: one blocking copy of the block's contiguous host rows per
         buffer (the host buffer is free for reuse once it returns), one
         transpose on the device into fresh tensors that no later chunk
-        overwrites."""
+        overwrites, and the device's LUT."""
         def up(a):
-            t = torch.from_numpy(a).to(self.device)
+            t = torch.from_numpy(a[lo:hi]).to(device)
             return t.transpose(0, 1).contiguous()
         return (up(pk.issue), up(pk.mask), up(pk.lat), up(pk.blk),
-                up(pk.valid), up(pk.prod), up(pk.delta), self.lut)
+                up(pk.valid), up(pk.prod), up(pk.delta),
+                self.comp.device_mask_table(device))
 
-    def dispatch(self, pk: _ChunkPack, record: list | None = None
-                 ) -> "_Launched":
-        """Upload one packed chunk and launch its kernel call; the returned
-        :class:`_Launched` copies ``(done, counts)`` back to the host on
-        ``result()``.  The launch's argument tuple is appended to
-        ``record`` when one is given.  Holds the executor's per-device
-        lock, so machines sharing the device serialize their launches and
-        machines on other devices do not."""
+    def dispatch(self, pk: _ChunkPack, n_use: int,
+                 record: list | None = None) -> "_Launched":
+        """Upload one packed chunk as ``n_use`` lane blocks and launch one
+        kernel call a block, block ``k`` on device ``k`` of the placement
+        on that device's current stream; the returned :class:`_Launched`
+        copies the blocks' ``(done, counts)`` back to the host on
+        ``result()``.  Every block is uploaded before the first launch, so
+        nothing waits between launches.  Each launch's argument tuple is
+        appended to ``record`` when one is given.  Holds the executor's
+        per-device-subset lock, so machines sharing the subset serialize
+        their launches and machines on disjoint subsets do not."""
         if faults.active():
             faults.check("device.dispatch", backend=self.kind)
+        loaded_now = False
         if self.kind == "cuda":
             _, loaded_now = wd.LIBRARY.load()
-            if loaded_now:
-                self.compiles += 1
             run = wd.wave_dispatch
         else:
             run = wd.wave_dispatch_ref
         E, S = pk.issue.shape
         R = pk.prod.shape[2]
-        timer = None
+        e_dev = E // n_use
+        mesh = lane_mesh(self.devices[:n_use])
+        lanes = [max(0, min(pk.E - k * e_dev, e_dev)) for k in range(n_use)]
+        blocks = []
         with obs.wait_lock(self.dispatch_lock, "wave.dispatch_lock_wait"):
-            args = self.upload(pk)
-            if obs.enabled():
-                # a traced wave times its kernel: CUDA events on the
-                # launching stream (the launch is asynchronous, so a host
-                # interval would see only the launch), read after the copy
-                # back, which is also when its device-track span is
-                # recorded; on the CPU the call is the kernel
-                timer = _KernelTimer(self.device, self._observe,
-                                     lanes=pk.E, steps=S)
-            done, counts = run(*args)
-            if timer is not None:
-                timer.stop()
+            inputs = [self.upload(pk, k * e_dev, (k + 1) * e_dev, d)
+                      for k, d in enumerate(mesh.devices)]
+            traced = obs.enabled()
+            streams = mesh.streams() if traced else ()
+            for k, args in enumerate(inputs):
+                timer = None
+                if traced:
+                    # a traced wave times each block's kernel: CUDA events
+                    # on its launching stream (the launch is asynchronous,
+                    # so a host interval would see only the launch), read
+                    # after the copy back, which is also when its
+                    # device-track span is recorded; on the CPU the call
+                    # is the kernel
+                    timer = _KernelTimer(
+                        streams[k], functools.partial(
+                            self._observe, f"device:{mesh.key[k]}"),
+                        lanes=lanes[k], steps=S)
+                done, counts = run(*args)
+                if timer is not None:
+                    timer.stop()
+                blocks.append((done, counts, timer))
+            if loaded_now:
+                self.compiles += 1
+            self.buckets.add((S, E, R))
+            self.kernel_calls += 1
+            for key, n in zip(mesh.key, lanes):
+                c = self.per_device[key]
+                c["compiles"] += loaded_now
+                c["kernel_calls"] += 1
+                c["lanes"] += n
+                c["buckets"].add((S, e_dev, R))
         if record is not None:
-            record.append(args)
-        self.buckets.add((S, E, R))
-        self.kernel_calls += 1
-        self.lanes += pk.E
-        return _Launched(done, counts, timer)
+            for args in inputs:     # one append a launch: sinks count them
+                record.append(args)
+        return _Launched(blocks, pk.E)
 
 
 class _KernelTimer:
     """The kernel interval of one traced launch: CUDA events recorded
-    around the launch on the launching stream, or a host ``perf_counter``
-    interval for a CPU call.  :meth:`report` hands the launch's host time
-    and the interval in ns (and the span attributes ``attrs``) to
-    ``observe`` once the outputs are on the host, so only traced waves
-    wait on an event and no untraced wave gains a synchronisation."""
+    around the launch on its ``stream``, or a host ``perf_counter``
+    interval for a CPU call (``stream`` None).  :meth:`report` hands the
+    launch's host time and the interval in ns (and the span attributes
+    ``attrs``) to ``observe`` once the outputs are on the host, so only
+    traced waves wait on an event and no untraced wave gains a
+    synchronisation."""
     __slots__ = ("observe", "attrs", "stream", "events", "t0", "ns")
 
-    def __init__(self, device, observe, **attrs):
+    def __init__(self, stream, observe, **attrs):
         self.observe = observe
         self.attrs = attrs
-        self.stream = self.events = None
+        self.stream = stream
+        self.events = None
         self.ns = 0
         self.t0 = time.perf_counter_ns()
-        if device.type == "cuda":
-            self.stream = torch.cuda.current_stream(device)
+        if stream is not None:
             self.events = (torch.cuda.Event(enable_timing=True),
                            torch.cuda.Event(enable_timing=True))
-            self.events[0].record(self.stream)
+            self.events[0].record(stream)
 
     def stop(self) -> None:
         if self.events is None:
@@ -1080,33 +1177,41 @@ class _KernelTimer:
 
 
 class _Launched:
-    """One launched chunk: its outputs on the device, copied to the host
-    (blocking until the kernel has finished) by :meth:`result`, which
-    also reports a traced launch's kernel time."""
-    __slots__ = ("done", "counts", "timer")
+    """One launched chunk: each lane block's outputs on its device.
+    :meth:`result` copies them to the host (blocking until each block's
+    kernel has finished), joins the blocks along the lanes, drops the
+    padding lanes past the chunk's ``lanes`` and reports each traced
+    block's kernel time."""
+    __slots__ = ("blocks", "lanes")
 
-    def __init__(self, done, counts, timer=None):
-        self.done = done
-        self.counts = counts
-        self.timer = timer
+    def __init__(self, blocks, lanes):
+        self.blocks = blocks
+        self.lanes = lanes
 
     def result(self):
-        out = self.done.cpu().numpy(), self.counts.cpu().numpy()
-        if self.timer is not None:
-            self.timer.report()
-        return out
+        done = [d.cpu().numpy() for d, _, _ in self.blocks]
+        counts = [c.cpu().numpy() for _, c, _ in self.blocks]
+        for _, _, timer in self.blocks:
+            if timer is not None:
+                timer.report()
+        if len(self.blocks) > 1:
+            done = [np.concatenate(done, axis=1)]
+            counts = [np.concatenate(counts, axis=0)]
+        return done[0][:, :self.lanes], counts[0][:self.lanes]
 
 
 class _BufSlot:
     """One recycled packing-buffer set.  ``leased`` is True from
     ``_DeviceExec.acquire`` until :meth:`release` after the chunk's
     results are *extracted* — extraction reads the slot's ``vis`` plane
-    through the :class:`_ChunkPack` views."""
-    __slots__ = ("bufs", "leased")
+    through the :class:`_ChunkPack` views.  ``n_use`` is the number of
+    lane blocks the slot's buckets were sized for (1 off the mesh)."""
+    __slots__ = ("bufs", "leased", "n_use")
 
-    def __init__(self, bufs):
+    def __init__(self, bufs, n_use=1):
         self.bufs = bufs
         self.leased = False
+        self.n_use = n_use
 
     def release(self) -> None:
         self.leased = False

@@ -1,26 +1,35 @@
-"""Device placement for wave execution: one device per machine.
+"""Lane-axis device placement: one machine's waves over several devices.
 
 The port of the reference package's ``repro.core.device_mesh`` for
-PyTorch.  Wave lanes are independent, so the reference shards them across
-a 1-D ``lanes`` mesh of jax devices.  This module keeps the pieces that
-are not kernel code, over ``torch.device``\\ s and for a **single device
-per machine**; sharding one machine's lanes across several GPUs is not
-ported yet.
+PyTorch.  Wave lanes are independent, so the natural multi-device
+decomposition is a **1-D mesh over a single ``lanes`` axis**: every device
+runs the same wave-dispatch kernel on its own contiguous block of a
+chunk's experiment lanes (the reference wraps its kernel in ``shard_map``;
+here the executor launches one kernel a block, each on its device's
+current stream, see ``core/batch_sim.py``).  This module keeps the pieces
+that are not kernel code, over ``torch.device``\\ s:
 
 * **Device resolution** — :func:`resolve_devices` turns a spec (the
-  ``REPRO_SIM_DEVICES`` environment variable, an integer count, a device
-  string such as ``"cuda:0"``, or an explicit sequence) into an ordered
-  tuple of ``torch.device``\\ s.  The default is the first card,
-  ``cuda:0``.  Resolution never looks for a card and never substitutes
-  the CPU: a machine placed on a device it cannot use fails when it
-  launches there.  :func:`resolve_device` picks the one device of a
-  single-device entry point and raises when a card is asked for and the
+  ``REPRO_SIM_DEVICES`` environment variable, an integer count, ``"all"``,
+  device names such as ``"cuda:0,cuda:1"``, or an explicit sequence) into
+  an ordered tuple of ``torch.device``\\ s.  The default is every card
+  (:func:`cuda_devices`), at least ``cuda:0``.  Resolution never
+  substitutes the CPU: a machine placed on a card it cannot use fails when
+  it launches there.  A placement may name one device more than once:
+  each entry is one logical device, one lane block (``("cpu",) * 4``
+  stands in for four devices on a CPU host, ``("cuda:0", "cuda:0")`` runs
+  two blocks on one card).  :func:`resolve_device` picks the one device of
+  a single-device entry point and raises when a card is asked for and the
   host has none.
 
+* **Lane meshes** — :class:`LaneMesh` holds an ordered device subset and
+  each device's current stream at dispatch; :func:`lane_mesh` memoizes one
+  per subset, so every chunk of one mesh width shares it.
+
 * **Per-device dispatch locks** — :func:`dispatch_lock` hands out one
-  ``threading.Lock`` per device subset (keyed by the devices' names,
-  module-wide).  Machines placed on the same device serialize their
-  host-side kernel dispatch on it; machines on different devices do not.
+  ``threading.Lock`` per device subset (keyed by the devices' sorted
+  names, module-wide).  Machines placed on the same subset serialize their
+  host-side kernel dispatch on it; machines on disjoint subsets do not.
 
 * **Campaign placement** — :func:`partition` splits the resolved devices
   into per-machine groups: contiguous disjoint blocks when there are at
@@ -44,28 +53,44 @@ def _torch_device(d):
     return d if isinstance(d, torch.device) else torch.device(d)
 
 
+def cuda_devices() -> tuple:
+    """Every CUDA device the host has, in index order; ``()`` without a
+    card (never the CPU in a card's place)."""
+    import torch  # noqa: PLC0415
+    if not torch.cuda.is_available():
+        return ()
+    return tuple(torch.device("cuda", i)
+                 for i in range(torch.cuda.device_count()))
+
+
 def resolve_devices(spec=None) -> tuple:
     """Resolve a device spec to an ordered tuple of ``torch.device``\\ s.
 
     ``spec`` may be ``None`` (read ``REPRO_SIM_DEVICES``, default
-    ``cuda:0``), an integer count or ``"all"`` (the first ``n`` / all
-    CUDA devices the host reports, at least ``cuda:0``), a device name or
-    comma-separated names, or a sequence of devices (returned as
-    ``torch.device``\\ s, in order)."""
+    ``"all"``), an integer count or ``"all"`` (the first ``n`` / all cards
+    of :func:`cuda_devices`, clamped to ``[1, available]``, and ``cuda:0``
+    on a host without one), a device name or comma-separated names, a
+    ``torch.device``, or a sequence of devices (returned as
+    ``torch.device``\\ s, in order).  Names and sequences may repeat a
+    device: each entry is one lane block."""
+    import torch  # noqa: PLC0415
     if spec is None:
-        spec = os.environ.get(ENV_DEVICES, "").strip() or DEFAULT_DEVICE
-    if isinstance(spec, str):
-        s = spec.strip().lower()
-        if s == "all" or s.isdigit():
-            import torch  # noqa: PLC0415
-            have = max(torch.cuda.device_count(), 1)
-            n = have if s == "all" else min(max(int(s), 1), have)
-            return tuple(torch.device("cuda", i) for i in range(n))
-        return tuple(_torch_device(x.strip()) for x in s.split(",")
-                     if x.strip())
+        spec = os.environ.get(ENV_DEVICES, "").strip() or "all"
+    if isinstance(spec, torch.device):
+        return (spec,)
+    n = None
     if isinstance(spec, int):
-        return resolve_devices(str(spec))
-    return tuple(_torch_device(d) for d in spec)
+        n = spec
+    elif isinstance(spec, str):
+        s = spec.strip().lower()
+        if s != "all" and not s.isdigit():
+            return tuple(_torch_device(x.strip()) for x in s.split(",")
+                         if x.strip())
+        n = None if s == "all" else int(s)
+    else:
+        return tuple(_torch_device(d) for d in spec)
+    cards = cuda_devices() or (torch.device(DEFAULT_DEVICE),)
+    return cards if n is None else cards[:min(max(n, 1), len(cards))]
 
 
 def resolve_device(device=None):
@@ -88,8 +113,45 @@ def device_key(device) -> str:
     return str(d)
 
 
+class LaneMesh:
+    """A 1-D ``lanes`` mesh over an ordered device subset: lane block ``k``
+    of a chunk runs on ``devices[k]``.  What the wave executor needs of it
+    is the ordered devices, their names (``key``, the cache identity) and
+    each device's current stream at dispatch (:meth:`streams`)."""
+
+    __slots__ = ("devices", "n", "key")
+
+    def __init__(self, devices):
+        self.devices = tuple(_torch_device(d) for d in devices)
+        self.n = len(self.devices)
+        self.key = tuple(device_key(d) for d in self.devices)
+
+    def streams(self) -> tuple:
+        """Each device's current stream, read now (``None`` for a CPU
+        device): a block's kernel launches on it."""
+        import torch  # noqa: PLC0415
+        return tuple(torch.cuda.current_stream(d) if d.type == "cuda"
+                     else None for d in self.devices)
+
+    def __repr__(self):
+        return f"<LaneMesh lanes={self.n} devices={list(self.key)}>"
+
+
+_MESHES: dict = {}
 _LOCKS: dict = {}
 _REGISTRY_LOCK = threading.Lock()
+
+
+def lane_mesh(devices) -> LaneMesh:
+    """Memoized :class:`LaneMesh` for an ordered device tuple (meshes are
+    shared across machines and buckets)."""
+    key = tuple(device_key(d) for d in devices)
+    with _REGISTRY_LOCK:
+        m = _MESHES.get(key)
+        if m is None:
+            with obs.span("mesh.build", devices=list(key)):
+                m = _MESHES[key] = LaneMesh(devices)
+        return m
 
 
 def dispatch_lock(devices) -> threading.Lock:

@@ -200,7 +200,7 @@ class EngineStats:
     degraded: dict = field(default_factory=dict)
     # machine-side device-kernel telemetry: the batched backend's
     # ``device_stats()`` snapshot (compile/kernel-call totals plus the
-    # ``per_device`` counters, keyed by jax device id), refreshed after
+    # ``per_device`` counters, keyed by device name), refreshed after
     # every executed wave.  Non-numeric — delta consumers (characterize's
     # engine_stats) skip it; ``bench_backend_matrix`` and the CI recompile
     # probe read it for cross-device recompiles
@@ -630,9 +630,11 @@ class Campaign:
         Machines that support it share one compiled μop-table index, so
         every uarch's batched backend uses the same instruction numbering
         (one table set per campaign, not per machine) — and are placed on
-        **disjoint device subsets** when the host has more than one jax
-        device (see :func:`repro_torch.core.device_mesh.partition`): each uarch's
-        waves then execute on its own devices under its own dispatch lock,
+        **disjoint device subsets** when the placement
+        (``REPRO_SIM_DEVICES``, else every card) has at least one device a
+        machine (see :func:`repro_torch.core.device_mesh.partition`): each
+        uarch's waves then execute on its own devices under its own
+        dispatch lock,
         so a multi-uarch campaign is wall-clock-bound by one uarch rather
         than serialized behind a shared device.  With one (or no) device
         every machine keeps the default placement; results are

@@ -78,18 +78,23 @@ class SimMachine:
 
     ``backend`` selects the batched wave-execution kernel (``cuda`` or
     ``torch``; default: the ``REPRO_SIM_BACKEND`` environment variable,
-    else ``cuda``) and ``device`` the device it runs on (default: the
-    first device of ``REPRO_SIM_DEVICES``, else ``cuda:0``) — results are
-    bit-identical on every backend.  A backend that
-    cannot run (``cuda`` without a card) raises from :meth:`run_batch`; it
-    is never replaced by another.  ``min_lanes`` is the thin-chunk
-    scalar-oracle crossover forwarded to
+    else ``cuda``).  ``device`` places it on one device; ``devices`` (an
+    integer count, ``"all"``, device names or a sequence of devices; see
+    :mod:`repro_torch.core.device_mesh`) on several, splitting every wide
+    enough chunk into per-device lane blocks; with neither the placement
+    is ``REPRO_SIM_DEVICES``, else every card.  Giving both raises.
+    Results are bit-identical on every backend and placement.  A backend
+    that cannot run (``cuda`` without a card) raises from
+    :meth:`run_batch`; it is never replaced by another.  ``min_lanes`` is
+    the thin-chunk scalar-oracle crossover forwarded to
     :class:`~repro_torch.core.batch_sim.BatchSimMachine`."""
 
     counters_available = True
 
     def __init__(self, uarch: UArch, isa: ISA, backend: str | None = None,
-                 min_lanes: int | None = None, device=None):
+                 min_lanes: int | None = None, device=None, devices=None):
+        if device is not None and devices is not None:
+            raise ValueError("give device= or devices=, not both")
         self.uarch = uarch
         self.isa = isa
         self.name = uarch.name
@@ -97,7 +102,10 @@ class SimMachine:
         self.backend = backend
         self.min_lanes = min_lanes
         self.device = device
-        self.devices = None       # campaign placement (set_devices)
+        # the placement: devices=, then each set_devices'; the machine is
+        # built on the constructor's, which fixes its device type
+        self.devices = devices
+        self._built_on = devices
         self._batch = None        # lazy BatchSimMachine
         self._table_index = None  # shared UopTableIndex (set by Campaign)
         # handed to the batched backend: a list that keeps every kernel
@@ -113,9 +121,11 @@ class SimMachine:
         self._batch = None
 
     def set_devices(self, devices) -> None:
-        """Adopt a campaign placement for the batched backend (see
-        :meth:`~repro_torch.core.batch_sim.BatchSimMachine.set_devices`);
-        results are bit-identical for every placement."""
+        """Adopt a device placement for the batched backend (a count,
+        ``"all"``, device names or a sequence of devices; see
+        :meth:`~repro_torch.core.batch_sim.BatchSimMachine.set_devices`).
+        ``Campaign.run`` uses this to place each machine on its own device
+        subset; results are bit-identical for every placement."""
         self.devices = devices
         if self._batch:
             self._batch.set_devices(devices)
@@ -168,12 +178,17 @@ class SimMachine:
                 "REPRO_SIM_BACKEND", "cuda")
             min_lanes = (DEFAULT_MIN_LANES if self.min_lanes is None
                          else self.min_lanes)
-            device = (resolve_devices()[0] if self.device is None
-                      else self.device)
+            if self.device is not None:
+                place = {"device": self.device}
+            elif self._built_on is not None:
+                place = {"devices": self._built_on}
+            else:
+                place = {"devices": resolve_devices()}
             batch = BatchSimMachine(
-                self.uarch, self.isa, backend=backend, device=device,
-                table_index=self._table_index, min_lanes=min_lanes)
-            if self.devices is not None:
+                self.uarch, self.isa, backend=backend,
+                table_index=self._table_index, min_lanes=min_lanes,
+                **place)
+            if self.devices is not self._built_on:
                 batch.set_devices(self.devices)
             batch.launched_args = self.launched_args
             self._batch = batch

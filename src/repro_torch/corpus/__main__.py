@@ -13,9 +13,10 @@ Usage (from the repo root)::
 ``generate`` is deterministic under a seed (the same corpus as
 ``python -m repro.corpus generate``); ``evaluate`` resumes per shard
 (kill it, rerun it, finished shards are skipped) and runs on the card:
-the wave backend is ``REPRO_SIM_BACKEND`` (default ``cuda``), the device
-the first of ``REPRO_SIM_DEVICES`` (default ``cuda:0``) and the predict
-backend ``REPRO_PREDICT_BACKEND`` (default ``cuda``) — on the CPU, set
+the wave backend is ``REPRO_SIM_BACKEND`` (default ``cuda``), the
+placement ``REPRO_SIM_DEVICES`` (default every card; the predictor runs
+on its first device) and the predict backend ``REPRO_PREDICT_BACKEND``
+(default ``cuda``) — on the CPU, set
 ``REPRO_SIM_BACKEND=torch REPRO_SIM_DEVICES=cpu
 REPRO_PREDICT_BACKEND=numpy``; ``report`` renders the accuracy artifact
 (``scripts/analyze_torch.py --corpus-report`` prints the same tables).

@@ -3,7 +3,7 @@
 The port of the reference package's ``repro/corpus/evaluate.py``.  For
 each uarch in the corpus manifest this evaluator
 
-1. builds the simulated machine on ``device`` (``backend``, default
+1. builds the simulated machine on ``devices`` (``backend``, default
    ``REPRO_SIM_BACKEND``, selects the wave backend: the CUDA wave-dispatch
    kernel on the card, or its plain torch version) and characterizes
    exactly the variants the corpus uses — through the *same* measurement
@@ -14,16 +14,16 @@ each uarch in the corpus manifest this evaluator
    ``BatchPredictor.simulate_batch`` call measures the whole wave — the
    engine dedups across shards and the batched backend executes the miss
    set device-resident — and one ``predict_batch`` call predicts it on
-   the same ``device`` (``predict_backend``, default
+   the placement's first device (``predict_backend``, default
    ``REPRO_PREDICT_BACKEND``, else the port-bound CUDA kernel);
 3. writes one result file per shard (atomic tmp+rename, keyed by the
    shard's manifest sha256) so a killed run resumes warm: shards with a
    matching result file are skipped entirely, and re-executed blocks hit
    the engine cache.
 
-The device defaults to the first entry of ``REPRO_SIM_DEVICES``, else
-``cuda:0``; asking for the card on a host without one raises, nothing
-moves to the CPU unless the caller asks for it.
+The placement defaults to ``REPRO_SIM_DEVICES``, else every card (at
+least ``cuda:0``); asking for the card on a host without one raises,
+nothing moves to the CPU unless the caller asks for it.
 
 The returned results dict feeds
 :func:`repro_torch.corpus.score.score_results`; ``wave_stats`` /
@@ -120,14 +120,19 @@ def evaluate_corpus(corpus_dir, *, uarches=None, isa=None,
                     predict_backend: str | None = None,
                     wave_width: int = 2048, out_dir=None,
                     resume: bool = True, models: dict | None = None,
-                    predict_fn=None, kernel_lock=None) -> dict:
+                    predict_fn=None, kernel_lock=None,
+                    devices=None) -> dict:
     """Evaluate a generated corpus end to end; returns the results dict
     consumed by :func:`repro_torch.corpus.score.score_results`.
 
-    ``device`` places both the machine's waves and the predictor (default:
-    the first ``REPRO_SIM_DEVICES`` entry, else ``cuda:0``); ``backend`` is
-    the machine's wave backend and ``predict_backend`` the predictor's
-    (see :class:`~repro_torch.service.batch_predictor.BatchPredictor`).
+    ``devices`` places the machine's waves (an integer count, ``"all"``,
+    device names or a sequence of devices: each wide enough chunk split
+    into per-device lane blocks, see :mod:`repro_torch.core.device_mesh`;
+    default ``REPRO_SIM_DEVICES``, else every card) and the predictor
+    runs on its first device; ``device`` is the one-device spelling, and
+    giving both raises.  ``backend`` is the machine's wave backend and
+    ``predict_backend`` the predictor's (see
+    :class:`~repro_torch.service.batch_predictor.BatchPredictor`).
 
     ``models`` optionally maps uarch name → :class:`PerfModel` (skip the
     characterization inside the evaluation); ``predict_fn(uarch, blocks)
@@ -135,8 +140,10 @@ def evaluate_corpus(corpus_dir, *, uarches=None, isa=None,
     path passes a ``ServiceClient``-backed callable here, and the scores
     must come out byte-identical."""
     isa = isa if isa is not None else TEST_ISA
-    device = resolve_device(resolve_devices()[0] if device is None
-                            else device)
+    if device is not None and devices is not None:
+        raise ValueError("give device= or devices=, not both")
+    devices = resolve_devices(devices if device is None else device)
+    resolve_device(devices[0])   # a card asked for and none there raises
     manifest = load_manifest(corpus_dir)
     results_dir = Path(out_dir if out_dir is not None
                        else Path(corpus_dir) / RESULT_DIR)
@@ -152,7 +159,7 @@ def evaluate_corpus(corpus_dir, *, uarches=None, isa=None,
                 continue
             shards = [s for s in manifest["shards"] if s["uarch"] == ua]
             by_uarch[ua] = _evaluate_uarch(
-                corpus_dir, ua, shards, isa, backend, device,
+                corpus_dir, ua, shards, isa, backend, devices,
                 predict_backend, wave_width, results_dir, resume,
                 (models or {}).get(ua), predict_fn, kernel_lock, waves,
                 agg_engine)
@@ -161,7 +168,7 @@ def evaluate_corpus(corpus_dir, *, uarches=None, isa=None,
             "engine_stats": agg_engine}
 
 
-def _evaluate_uarch(corpus_dir, ua, shards, isa, backend, device,
+def _evaluate_uarch(corpus_dir, ua, shards, isa, backend, devices,
                     predict_backend, wave_width, results_dir, resume, model,
                     predict_fn, kernel_lock, waves, agg_engine
                     ) -> list[dict]:
@@ -179,7 +186,7 @@ def _evaluate_uarch(corpus_dir, ua, shards, isa, backend, device,
         pending.append((shard, records, blocks))
     if pending:
         machine = SimMachine(SIM_UARCHES[ua], isa, backend=backend,
-                             device=device)
+                             devices=devices)
         engine = as_engine(machine)
         with obs.span("corpus.uarch", uarch=ua, shards=len(pending)):
             if model is None:
@@ -189,7 +196,7 @@ def _evaluate_uarch(corpus_dir, ua, shards, isa, backend, device,
                 # shared, so characterization experiments never rerun
                 model = characterize(engine, isa, used)
             bp = BatchPredictor(model, isa, machine=machine,
-                                backend=predict_backend, device=device)
+                                backend=predict_backend, device=devices[0])
             stats0 = {k: v for k, v in engine.stats.as_dict().items()
                       if isinstance(v, (int, float)) and k != "hit_rate"}
             _run_waves(ua, bp, pending, wave_width, predict_fn,

@@ -147,15 +147,23 @@ def wave_dispatch(issue, mask_id, lat, blk, valid, prod, delta, lut):
 
 def wave_dispatch_ref(issue, mask_id, lat, blk, valid, prod, delta, lut):
     """The plain PyTorch version of the kernel (any device): one step per
-    μop row, all lanes at once, with the TPU kernel's two-pass tie-break
-    (earliest time, then least count, then lowest port index)."""
+    μop row up to the last valid one, all lanes at once, with the TPU
+    kernel's two-pass tie-break (earliest time, then least count, then
+    lowest port index)."""
     S, E, R = _check(issue, mask_id, lat, blk, valid, prod, delta, lut)
     dev = issue.device
     P = lut.shape[1]
     pf = torch.zeros((E, P), dtype=torch.int32, device=dev)
     pc = torch.zeros((E, P), dtype=torch.int32, device=dev)
-    if S == 0 or E == 0:
+    rows = valid.any(dim=1).nonzero()
+    if S == 0 or E == 0 or rows.numel() == 0:
         return torch.zeros((S, E), dtype=torch.int32, device=dev), pc
+    # the walk ends at the last valid row, as the kernel's does: every
+    # later row gives done = 0 and changes no port state
+    walk = int(rows[-1]) + 1
+    issue, mask_id, lat, blk, valid = (t[:walk] for t in
+                                       (issue, mask_id, lat, blk, valid))
+    prod, delta = prod[:walk], delta[:walk]
     big = torch.tensor(_INT32_MAX, dtype=torch.int32, device=dev)
     ports = torch.arange(P, device=dev)[None, :]
     lanes = torch.arange(E, device=dev)[None, :, None]
@@ -167,10 +175,10 @@ def wave_dispatch_ref(issue, mask_id, lat, blk, valid, prod, delta, lut):
     vint = valid.to(torch.int32)
     # an invalid row's winner is pushed off the port axis: no state change
     off = (~valid).long() * P
-    rows = zip(issue.unbind(0), src.unbind(0), delta.unbind(0),
-               allowed.unbind(0), lat.unbind(0), blk.unbind(0),
-               vint.unbind(0), off.unbind(0), done[:S * E].split(E))
-    for isu, sr, de, alw, la, bl, va, of, out in rows:
+    steps = zip(issue.unbind(0), src.unbind(0), delta.unbind(0),
+                allowed.unbind(0), lat.unbind(0), blk.unbind(0),
+                vint.unbind(0), off.unbind(0), done[:walk * E].split(E))
+    for isu, sr, de, alw, la, bl, va, of, out in steps:
         ready = torch.maximum(isu, (done.take(sr) + de).amax(dim=1))
         t = torch.maximum(ready[:, None], pf)
         ta = torch.where(alw, t, big)

@@ -156,11 +156,12 @@ class BatchPredictor:
         serializes GIL-bound kernel execution against other engines
         sharing the lock; host lowering/packing stays concurrent.
 
-        ``devices`` (an integer count, ``"all"``, or an explicit sequence
-        of torch devices) re-places the machine's wave execution before
-        this wave through its ``set_devices`` (see
-        :mod:`repro_torch.core.device_mesh`: one device per machine);
-        results are bit-identical on every device.  ``None`` keeps the
+        ``devices`` (an integer count, ``"all"``, device names or a
+        sequence of torch devices) re-places the machine's wave execution
+        before this wave through its ``set_devices`` (see
+        :mod:`repro_torch.core.device_mesh`: several devices split each
+        wide enough chunk into lane blocks); results are bit-identical on
+        every placement.  ``None`` keeps the
         machine's current placement (the ``REPRO_SIM_DEVICES``
         default)."""
         if self.machine is None:

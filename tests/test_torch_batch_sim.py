@@ -494,7 +494,7 @@ def test_kernel_inputs_are_the_launched_chunks():
         issue, valid, prod, lut = args[0], args[4], args[5], args[7]
         assert issue.dtype == torch.int32 and issue.is_contiguous()
         assert prod.shape[:2] == issue.shape == valid.shape
-        assert torch.equal(lut, m._device.lut)
+        assert torch.equal(lut, m._comp.device_mask_table(lut.device))
         done, counts = wd.wave_dispatch(*args)
         ref_done, ref_counts = wd.wave_dispatch_ref(*args)
         assert torch.equal(done, ref_done) and torch.equal(counts, ref_counts)

@@ -246,3 +246,54 @@ def test_traced_waves_record_the_kernel_interval_on_the_device_track(card):
             calls = st["kernel_calls"]
     finally:
         obs.set_tracer(old)
+
+
+@pytest.mark.parametrize("placement", [("cuda:0", "cuda:0"),
+                                       ("cuda:0", "cuda:1")],
+                         ids=["one card twice", "two cards"])
+def test_lane_blocks_equal_the_one_device_launch(card, placement):
+    """A wide chunk (one chunk of 200 lanes, a few hundred rows each) on two
+    logical devices runs as two lane blocks: each block's kernel equals
+    its plain version, the blocks joined along the lanes equal the
+    one-device launch of the whole chunk on its real lanes, and the
+    Counters are equal."""
+    from repro_torch.core.batch_sim import BatchSimMachine
+    from repro_torch.core.isa import TEST_ISA
+    from repro_torch.core.machine import RegPool, independent_seq
+    from repro_torch.core.uarch import SIM_SKL
+
+    if torch.cuda.device_count() < len(set(placement)):
+        pytest.skip(f"needs {len(set(placement))} cards, the host has "
+                    f"{torch.cuda.device_count()}")
+    specs = ("ADD_R64_R64", "IMUL_R64_R64", "DIV_R64", "MULPS_X_X",
+             "ADC_R64_R64", "MOV_M64_R64", "SHLD_R64_R64_I8", "PADDD_X_X")
+    codes = [independent_seq(TEST_ISA[specs[i % len(specs)]], RegPool(), 3)
+             * (40 + i % 50) for i in range(200)]
+    one = BatchSimMachine(SIM_SKL, TEST_ISA, backend="cuda", device=card)
+    two = BatchSimMachine(SIM_SKL, TEST_ISA, backend="cuda",
+                          devices=placement)
+    one.launched_args, two.launched_args = [], []
+    before = wd.launches
+    got_one, got_two = one.run_batch(codes), two.run_batch(codes)
+    assert wd.launches == before + 3             # one chunk, then 2 blocks
+    assert [(c.cycles, c.port_uops) for c in got_one] == \
+        [(c.cycles, c.port_uops) for c in got_two]
+    (whole,), blocks = one.launched_args, two.launched_args
+    assert [b[0].device for b in blocks] == [torch.device(d)
+                                             for d in placement]
+    outs = []
+    for args in blocks:
+        _assert_kernel_equals_plain(args)
+        outs.append(tuple(t.cpu() for t in wd.wave_dispatch(*args)))
+    done, counts = (t.cpu() for t in wd.wave_dispatch(*whole))
+    torch.cuda.synchronize()
+    lanes = len(codes)
+    assert torch.equal(torch.cat([o[0] for o in outs], 1)[:, :lanes],
+                       done[:, :lanes])
+    assert torch.equal(torch.cat([o[1] for o in outs], 0)[:lanes],
+                       counts[:lanes])
+    st = two.device_stats()
+    assert st["mesh"] is True and st["devices"] == list(placement)
+    assert st["kernel_calls"] == 1
+    assert sum(c["lanes"] for c in st["per_device"].values()) == lanes
+    assert sum(c["kernel_calls"] for c in st["per_device"].values()) == 2

@@ -73,6 +73,14 @@ def test_package_has_the_slice_modules():
                  "analysis.hlo_stats", "analysis.report", "launch.dryrun",
                  "ops", "ops.corpus", "runtime", "runtime.fault_tolerance"):
         assert f"repro_torch.{name}" in mods, name
+    # the lane mesh: its names, and devices= on every placing entry point
+    from repro_torch.core import device_mesh
+    from repro_torch.corpus import evaluate_corpus
+    for name in ("cuda_devices", "LaneMesh", "lane_mesh", "resolve_devices",
+                 "dispatch_lock", "partition"):
+        assert callable(getattr(device_mesh, name)), name
+    for entry in (BatchSimMachine, SimMachine, evaluate_corpus):
+        assert "devices" in inspect.signature(entry).parameters, entry
 
 
 def test_imports_with_jax_and_repro_poisoned():
@@ -84,6 +92,9 @@ def test_imports_with_jax_and_repro_poisoned():
         "    sys.modules[name] = None\n"
         f"for mod in {_modules()!r}:\n"
         "    importlib.import_module(mod)\n"
+        "from repro_torch.core.device_mesh import (LaneMesh, cuda_devices,\n"
+        "                                          lane_mesh)\n"
+        "assert lane_mesh(('cpu', 'cpu')).n == 2\n"
         "bad = sorted(m for m, v in sys.modules.items() if v is not None "
         "and (m in ('jax', 'repro') or m.startswith(('jax.', 'repro.'))))\n"
         "assert not bad, bad\n"
