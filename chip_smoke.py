@@ -1912,11 +1912,15 @@ def _device_us(prof, operators=False):
     the device's own events (kernels, copies, fills), or with
     ``operators`` the operators that launched them, each with the device
     time of its own kernels.  ``key_averages()`` holds both, and each
-    kernel's time once in each: sum one kind only."""
+    kernel's time once in each: sum one kind only.  The program's span
+    ranges (``record_function`` user annotations, which the span tracer
+    opens under a profiler, and their device shadows spanning whole
+    waves) are neither, and are left out."""
     from torch.autograd import DeviceType
     out = {}
     for item in prof.key_averages():
-        if (item.device_type == DeviceType.CPU) != operators:
+        if (item.device_type == DeviceType.CPU) != operators or getattr(
+                item, "is_user_annotation", False):
             continue
         us = getattr(item, "self_device_time_total", None)
         if us is None:

@@ -114,13 +114,14 @@ def tree_unbind(xs, n: int) -> list:
     return list(torch.unbind(xs, 0))
 
 
-def xscan(cfg: ModelConfig, body, carry, xs):
+def xscan(cfg: ModelConfig, body, carry, xs, index: bool = False):
     """``lax.scan(body, carry, xs)`` as a Python loop over the leading
     dimension of ``xs``; returns ``(carry, stacked ys)``.  Always unrolled,
-    so ``cfg.unroll_scans`` has nothing to change."""
+    so ``cfg.unroll_scans`` has nothing to change.  With ``index`` the
+    body is called ``body(carry, x_i, i)``."""
     ys = []
-    for x_i in tree_unbind(xs, _leading(xs)):
-        carry, y = body(carry, x_i)
+    for i, x_i in enumerate(tree_unbind(xs, _leading(xs))):
+        carry, y = body(carry, x_i, i) if index else body(carry, x_i)
         ys.append(y)
     return carry, (_stack(ys) if ys else None)
 

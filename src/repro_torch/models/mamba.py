@@ -21,6 +21,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import sharding as SH
 from repro_torch.models.layers import dense_init, full, normal, rms_norm
 from repro_torch.models.sharding import MeshAxes, replicated, sc
+from repro_torch.obs import tracer as obs
 
 
 def segsum(x):
@@ -225,11 +226,14 @@ def _project(x, p, cfg: ModelConfig, axes: MeshAxes):
     return z, xin, Bp, Cp, dt_raw
 
 
-def mamba_block(x, p, cfg: ModelConfig, axes: MeshAxes):
+def mamba_block(x, p, cfg: ModelConfig, axes: MeshAxes,
+                layer: int | None = None):
     """Prefill Mamba2 block: (B, S, D) -> ((B, S, D), final_state).
 
     final_state: (ssm_state (B,h,p,n), conv_state (B, w-1, conv_ch), None
     when S < w) so that prefill can hand off to the recurrent decode path.
+    ``layer`` (the block's index in its trunk) only labels the block's
+    spans: ``mamba.proj``, ``mamba.ssd``, ``mamba.out``.
     """
     B_, S, _ = x.shape
     cd = cfg.compute_dtype
@@ -238,7 +242,8 @@ def mamba_block(x, p, cfg: ModelConfig, axes: MeshAxes):
                        cfg.ssm_headdim, cfg.ssm_conv)
     res = x
     x = rms_norm(x, p["ln"], cfg.norm_eps)
-    z, xin, Bp, Cp, dt_raw = _project(x, p, cfg, axes)
+    with obs.span("mamba.proj", layer=layer):
+        z, xin, Bp, Cp, dt_raw = _project(x, p, cfg, axes)
     xbc = torch.cat([xin, Bp, Cp], dim=-1)
     xbc = sc(xbc, axes, "batch", None, "model")
     conv_state = xbc[:, S - (w - 1):, :] if S >= w else None
@@ -253,12 +258,14 @@ def mamba_block(x, p, cfg: ModelConfig, axes: MeshAxes):
     # ssd_dtype="bf16": x/B/C operands in bf16 through the intra-chunk
     # matrix work; decay/statistics stay fp32 inside ssd_chunked
     sdt = f32 if cfg.ssd_dtype == "fp32" else cfg.compute_dtype
-    y, ssm_state = ssd_chunked_sharded(xin.to(sdt), dt, A, Bm.to(sdt),
-                                       Cm.to(sdt), cfg.ssm_chunk, axes)
-    y = y.to(f32) + (p["D"].to(f32)[:, None] * xin.to(f32))
-    y = y.to(cd).reshape(B_, S, di)
-    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    out = y @ p["out"].to(cd)
+    with obs.span("mamba.ssd", layer=layer, tokens=B_ * S):
+        y, ssm_state = ssd_chunked_sharded(xin.to(sdt), dt, A, Bm.to(sdt),
+                                           Cm.to(sdt), cfg.ssm_chunk, axes)
+        y = y.to(f32) + (p["D"].to(f32)[:, None] * xin.to(f32))
+    with obs.span("mamba.out", layer=layer):
+        y = y.to(cd).reshape(B_, S, di)
+        y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
+        out = y @ p["out"].to(cd)
     return (res + sc(out, axes, "batch", None, None),
             (ssm_state.to(cd), conv_state))
 

@@ -652,12 +652,12 @@ class MambaLM(BaseLM):
     def _trunk(self, h, collect_state: bool = False):
         cfg = self.cfg
 
-        def body(x, lp):
-            x, st = M.mamba_block(x, lp, cfg, self.axes)
+        def body(x, lp, layer):
+            x, st = M.mamba_block(x, lp, cfg, self.axes, layer)
             return x, (st if collect_state else None)
 
         return L.xscan(cfg, body if collect_state else _remat(body, cfg), h,
-                       self["layers"])
+                       self["layers"], index=True)
 
     def loss(self, batch):
         batch = self._inputs(batch, "train")

@@ -8,6 +8,11 @@ they all report through:
 * :mod:`repro_torch.obs.tracer` — thread-safe hierarchical spans with monotonic
   clocks and a module-level no-op fast path (near-zero overhead when
   disabled; enable with ``REPRO_TRACE=1`` or ``Tracer(enabled=True)``).
+  While enabled under a recording ``torch.profiler`` session, each span
+  is also a ``record_function`` range of its name (a user annotation in
+  the profiler's trace, on the device's clock); the tracer's epoch anchor
+  ``t0_epoch_ns`` puts ``export.chrome_trace(epoch=True)`` on that clock
+  too.
 * :mod:`repro_torch.obs.metrics` — a counter/gauge/histogram registry with one
   ``snapshot()`` shape, absorbing the legacy stats dicts
   (``EngineStats.as_dict()``, ``device_stats()``, the server's per-endpoint
@@ -19,7 +24,17 @@ they all report through:
   --trace-report``).
 
 Span names and metric alias tables are those of the reference package's
-``repro.obs``.
+``repro.obs`` on the uops path (campaign, waves, service, corpus).  The
+model path has its own spans, one a layer call, none inside a loop over
+chunks or leaves: ``serve.prefill`` (``train/serve.py:make_prefill``,
+``tokens=``), ``train.step`` (``train/train_loop.py:make_train_step``,
+``tokens=``), ``train.backward`` (around ``torch.autograd.grad``,
+``microbatch=``), ``optim.adamw`` (around ``adamw.apply_update``), and in
+``models/mamba.py:mamba_block`` ``mamba.proj`` (the in-projections and
+their weight casts), ``mamba.ssd`` (the chunked scan, its operand casts
+and the ``D`` skip; ``tokens=``) and ``mamba.out`` (gate, norm,
+out-projection), each with ``layer=``.  Under activation checkpointing
+the recompute enters the ``mamba.*`` spans again, inside the backward.
 """
 from repro_torch.obs.tracer import (NULL_SPAN, Tracer, counter, enabled,
                                           get_tracer, instant, set_tracer, span,

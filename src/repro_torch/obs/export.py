@@ -16,7 +16,11 @@ into the `trace-event format`__ understood by Perfetto and
 __ https://docs.google.com/document/d/1CvAClvFfyA5R-PhYUmn5OOQtYMH4h6I0nSsKchNAySU
 
 Timestamps are µs relative to the tracer's start (monotonic clock), which
-is what the viewers expect.  ``write_jsonl`` dumps the raw internal events
+is what the viewers expect; ``chrome_trace(epoch=True)`` gives µs since
+the Unix epoch instead, through the tracer's ``t0_epoch_ns`` anchor: the
+clock of ``torch.profiler``'s events, so the spans can be laid into a
+profiler trace of the same run (``bench/spans.py --export``).
+``write_jsonl`` dumps the raw internal events
 one-JSON-object-per-line for cheap ad-hoc grepping; ``load_events``
 re-reads either format for :mod:`repro_torch.analysis.wave_report`.
 """
@@ -44,12 +48,14 @@ def _tid_map(tracer: Tracer) -> Dict[object, int]:
 
 
 def chrome_trace(tracer: Optional[Tracer] = None, *,
-                 process_name: str = "repro") -> dict:
+                 process_name: str = "repro", epoch: bool = False) -> dict:
     """Render the tracer's events as a trace-event JSON object."""
     tr = tracer if tracer is not None else get_tracer()
     tids = _tid_map(tr)
     pid = tr.pid
-    t0 = tr.t0_ns
+    # the tracer-clock time exported timestamps count from: the tracer's
+    # start, or the Unix epoch through its anchor
+    t0 = tr.t0_ns - (tr.t0_epoch_ns if epoch else 0)
     events: List[dict] = [
         {"ph": "M", "name": "process_name", "pid": pid, "tid": 0,
          "args": {"name": process_name}},

@@ -251,21 +251,6 @@ ENDPOINT_ALIASES: Dict[str, str] = {
 }
 
 
-def absorb_engine_stats(reg: MetricsRegistry, stats: Dict[str, Any],
-                        prefix: str = "") -> MetricsRegistry:
-    """Register an ``EngineStats.as_dict()``-shaped dict as instruments."""
-    for legacy, name in ENGINE_ALIASES.items():
-        if legacy in stats:
-            if legacy == "hit_rate":
-                reg.gauge(prefix + name).set(stats[legacy])
-            else:
-                reg.gauge(prefix + name).set(stats[legacy])
-    dev = stats.get("device")
-    if isinstance(dev, dict):
-        absorb_device_stats(reg, dev, prefix=prefix)
-    return reg
-
-
 def absorb_device_stats(reg: MetricsRegistry, dstats: Dict[str, Any],
                         prefix: str = "") -> MetricsRegistry:
     """Register a ``device_stats()``-shaped dict as instruments.

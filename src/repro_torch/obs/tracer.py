@@ -21,7 +21,23 @@ the environment, or programmatically::
 Design notes
 ------------
 * Clocks are ``time.perf_counter_ns()`` (monotonic); export converts to
-  the trace-event µs epoch relative to the tracer's start.
+  the trace-event µs epoch relative to the tracer's start.  The tracer
+  also keeps an epoch anchor, ``t0_epoch_ns`` (``time.time_ns()`` taken
+  beside ``t0_ns``, at start and on ``clear()``), so
+  ``export.chrome_trace(epoch=True)`` can state its events on the wall
+  clock that ``torch.profiler``'s events carry (``start_ns()``:
+  nanoseconds since the Unix epoch), and the spans line up with a
+  profiler trace in Perfetto (``bench/spans.py --export``).
+* While tracing is on and a ``torch.profiler`` session is recording, each
+  span also opens a ``torch.profiler.record_function`` range of its own
+  name, closed when the span closes: the span then sits in the profiler's
+  (kineto) trace as a user annotation, on the thread that entered it and
+  on the clock of the device's kernels, so device time can be told by the
+  span that launched it.  The check is made on the enabled path only;
+  torch is looked up among the loaded modules, never imported here.  The
+  model path's spans (``serve.prefill``, ``train.step``,
+  ``train.backward``, ``optim.adamw``, ``mamba.proj``, ``mamba.ssd``,
+  ``mamba.out``; see :mod:`repro_torch.obs`) are read this way.
 * Events append to one shared list — ``list.append`` is atomic under the
   GIL, so the hot path takes no lock.
 * Each thread keeps its own span stack (``threading.local``) so nesting
@@ -37,6 +53,7 @@ Design notes
 from __future__ import annotations
 
 import os
+import sys
 import threading
 import time
 from typing import Any, Dict, List, Optional
@@ -62,10 +79,21 @@ class _NullSpan:
 NULL_SPAN = _NullSpan()
 
 
+def _profiler_range(name: str):
+    """An entered ``record_function`` range named ``name`` while a
+    ``torch.profiler`` session records, else None."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd.profiler._is_profiler_enabled:
+        return None
+    rf = torch.autograd.profiler.record_function(name)
+    rf.__enter__()
+    return rf
+
+
 class _Span:
     """A live span: records one complete ("X") event when it exits."""
 
-    __slots__ = ("_tracer", "name", "args", "track", "_t0")
+    __slots__ = ("_tracer", "name", "args", "track", "_t0", "_rf")
 
     def __init__(self, tracer: "Tracer", name: str,
                  args: Optional[Dict[str, Any]], track: Optional[str]):
@@ -85,9 +113,12 @@ class _Span:
     def __enter__(self):
         self._tracer._stack().append(self)
         self._t0 = _now()
+        self._rf = _profiler_range(self.name)
         return self
 
     def __exit__(self, *exc):
+        if self._rf is not None:
+            self._rf.__exit__(None, None, None)
         t1 = _now()
         tr = self._tracer
         stack = tr._stack()
@@ -151,6 +182,7 @@ class Tracer:
     def __init__(self, enabled: bool = False):
         self.enabled = bool(enabled)
         self.t0_ns = _now()
+        self.t0_epoch_ns = time.time_ns()
         self.pid = os.getpid()
         self._events: List[dict] = []
         self._local = threading.local()
@@ -214,6 +246,7 @@ class Tracer:
         self._threads.clear()
         self._tracks.clear()
         self.t0_ns = _now()
+        self.t0_epoch_ns = time.time_ns()
 
     def thread_names(self) -> Dict[int, str]:
         return dict(self._threads)

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.obs import tracer as obs
+
 
 def make_serve_step(model, sample: str = "greedy", temperature: float = 1.0):
     """serve_step(state, tokens, generator=None) -> (next_tokens, logits,
@@ -34,7 +36,8 @@ def make_serve_step(model, sample: str = "greedy", temperature: float = 1.0):
 
 def make_prefill(model):
     def prefill(batch, pad_to: int | None = None):
-        return model.prefill(batch, pad_to=pad_to)
+        with obs.span("serve.prefill", tokens=batch["tokens"].numel()):
+            return model.prefill(batch, pad_to=pad_to)
 
     return prefill
 

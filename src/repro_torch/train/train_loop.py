@@ -26,6 +26,7 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from repro_torch.models.sharding import axis_size, placements, replicated
+from repro_torch.obs import tracer as obs
 from repro_torch.optim import adamw
 
 
@@ -94,9 +95,10 @@ def make_train_step(model, opt_cfg: adamw.AdamWConfig,
             return g.redistribute(p.device_mesh, p.placements)
         return g
 
-    def grad_fn(mb):
+    def grad_fn(mb, i: int = 0):
         loss, metrics = model.loss(mb)
-        grads = torch.autograd.grad(loss, params)
+        with obs.span("train.backward", microbatch=i):
+            grads = torch.autograd.grad(loss, params)
         return (loss.detach(), metrics,
                 [placed(g, p) for g, p in zip(grads, params)])
 
@@ -104,6 +106,10 @@ def make_train_step(model, opt_cfg: adamw.AdamWConfig,
         if params_ is not model:
             raise ValueError("train_step updates its own model: pass it as "
                              "params")
+        with obs.span("train.step", tokens=batch["tokens"].numel()):
+            return _step(opt_state, batch)
+
+    def _step(opt_state, batch):
         if n == 1:
             loss, metrics, grads = grad_fn(batch)
             metrics = {k: v.detach() for k, v in metrics.items()}
@@ -125,14 +131,15 @@ def make_train_step(model, opt_cfg: adamw.AdamWConfig,
                                           device=model.device), params[0])
             for i in range(n):
                 with _batch_axes(model, mb_axes):
-                    l, _, g = grad_fn({k: v[i] for k, v in mbs.items()})
+                    l, _, g = grad_fn({k: v[i] for k, v in mbs.items()}, i)
                 acc = [a + gg.to(torch.float32) for a, gg in zip(acc, g)]
                 lsum = lsum + l
             grads = [a / n for a in acc]
             loss = lsum / n
             metrics = {"ce": loss}
-        _, opt_state, om = adamw.apply_update(model, _nest(names, grads),
-                                              opt_state, opt_cfg)
+        with obs.span("optim.adamw"):
+            _, opt_state, om = adamw.apply_update(
+                model, _nest(names, grads), opt_state, opt_cfg)
         metrics = dict(metrics)
         metrics["loss"] = loss
         metrics.update(om)
