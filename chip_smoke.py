@@ -1944,6 +1944,7 @@ def _serve_model(arch, cut, B, S, steps, smi):
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs.base import load_config
+    from repro_torch.kernels import ssd_scan as sd
     from repro_torch.models.model import build_model
     from repro_torch.train.serve import generate, make_serve_step
 
@@ -1962,8 +1963,14 @@ def _serve_model(arch, cut, B, S, steps, smi):
     pad = positions + steps + 9
     step = make_serve_step(model)
     # warm-up at the timed shapes: the first calls pay cuBLAS and
-    # allocator set-up
+    # allocator set-up; the prefill launches the SSD kernel once a Mamba2
+    # layer (models/mamba.py:ssd_route)
+    sd.launches = 0
     lg, st = model.prefill(batch, pad_to=pad)
+    ssd_launches = sd.launches
+    want = cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
+    require(ssd_launches == want, f"{arch}: a prefill launched the SSD "
+            f"kernel {ssd_launches} times, not {want}")
     step(st, torch.argmax(lg, -1).to(torch.int32))
     del lg, st
     prefill_runs = []
@@ -2066,7 +2073,8 @@ def _serve_model(arch, cut, B, S, steps, smi):
         f"{decode_ms:.2f} ms a step ({busy}), max_memory_allocated "
         f"{peak / 2**30:.2f} GiB: {params / 2**30:.2f} GiB of weights, "
         f"{(peak - before - params) / 2**30:.2f} GiB of serving, "
-        f"{before / 2**30:.2f} GiB held before the model ({smi}); {via}")
+        f"{before / 2**30:.2f} GiB held before the model ({smi}); {via}; "
+        f"ssd_scan launches in a prefill {ssd_launches}")
     log(f"[models] {full.name}: finite logits; f32 prefill({CHECK_SEQ}) + "
         f"decode(1) vs prefill({CHECK_SEQ + 1}) max |d| {cons:.3g} (tol "
         f"{CONSISTENCY_TOL}); card vs CPU at {cfg_chk.num_layers} layers, "
@@ -2077,6 +2085,7 @@ def _serve_model(arch, cut, B, S, steps, smi):
             "decode_steps": steps, "prefill_s": prefill_s,
             "prefill_runs_s": prefill_runs,
             "prefill_tokens_per_s": tok_s, "decode_ms_per_step": decode_ms,
+            "prefill_ssd_launches": ssd_launches,
             "generate_s": gen_s, "peak_bytes": peak, "weight_bytes": params,
             "bytes_before_model": before,
             "device_busy_share": busy_share,
@@ -3358,7 +3367,8 @@ def _ops_cases():
          zamba.ssm_groups, zamba.ssm_chunk)
     ssd = [("mamba2_2_7b", 2, 4096, *m, f32),
            ("mamba2_2_7b", 2, 4096, *m, bf16),
-           ("zamba2_2_7b", 2, 4096, *z, f32)]
+           ("zamba2_2_7b", 2, 4096, *z, f32),
+           ("mamba2_2_7b prefill", 1, 4096, *m, f32)]
     # held against the sequential recurrence: Mamba2 width, two chunks
     ssd_seq = ("mamba2_2_7b, 2 chunks", 2, 2 * mamba.ssm_chunk, *m, f32)
     return flash, rms, ssd, ssd_seq

@@ -9,15 +9,28 @@ recurrent step (``ssd_step``), and the Mamba2 block built on them: params,
 the depthwise causal conv, the split projections, the prefill block that
 hands its final SSM and conv state to decode, the decode step and the
 decode state's shapes.  ``kernels/ref.py`` builds its SSD oracle on
-``ssd_chunked``, as the reference's does; the models call the plain scan,
-as the reference's do, not the SSD kernel of ``kernels/ops.py``.
+``ssd_chunked``, as the reference's does.
+
+The prefill block's scan takes one of two routes (:func:`ssd_route`, the
+``route=`` of its ``mamba.ssd`` span).  ``"kernel"``: the hand-written
+chunk-parallel scan of ``kernels/ssd_scan.py`` (``csrc/ssd_scan.cu``; f32
+operands through 3xTF32), when the operands are real CUDA tensors, no mesh
+axis is enabled and nothing needs a gradient; prefill and serving on the
+card.  A shape or dtype the kernel does not take then raises (the
+wrapper's check), as every kernel of the port does on the card.
+``"plain"``: :func:`ssd_chunked_sharded` in every other case: the CPU (so
+the CPU path is the reference's, op for op), training (the kernel has no
+backward), a mesh and the dry run's fake tensors.  Decode's
+:func:`ssd_step` is plain PyTorch always.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ssd_scan as SSD
 from repro_torch.models import sharding as SH
 from repro_torch.models.layers import dense_init, full, normal, rms_norm
 from repro_torch.models.sharding import MeshAxes, replicated, sc
@@ -35,6 +48,15 @@ def segsum(x):
     return torch.where(mask, seg, float("-inf"))
 
 
+def _pad_tail(q: int, *arrays):
+    """Each (b, s, ...) array zero-padded along s to a multiple of ``q``
+    (for dt, 0: decay 1 and no contribution to the state)."""
+    pad = (-arrays[0].shape[1]) % q
+    if not pad:
+        return arrays
+    return tuple(F.pad(a, [0, 0] * (a.dim() - 2) + [0, pad]) for a in arrays)
+
+
 def ssd_chunked(x, dt, A, B, C, chunk: int, initial_state=None):
     """Chunked SSD scan.
 
@@ -47,14 +69,8 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, initial_state=None):
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     q = min(chunk, s)
-    pad = (-s) % q
-    if pad:  # zero-pad tail: dt=0 => decay 1 and no state contribution
-        def zp(a):
-            return F.pad(a, [0, 0] * (a.dim() - 2) + [0, pad])
-        x, dt, B, C = zp(x), zp(dt), zp(B), zp(C)
-        s_orig, s = s, s + pad
-    else:
-        s_orig = s
+    x, dt, B, C = _pad_tail(q, x, dt, B, C)
+    s_orig, s = s, x.shape[1]
     c = s // q
 
     xd = (x * dt[..., None]).reshape(b, c, q, h, p)
@@ -161,6 +177,37 @@ def ssd_chunked_sharded(x, dt, A, B, C, chunk: int, axes: MeshAxes):
         ((b, s, h, p), (b, h, p, n)))
 
 
+def _card_tensor(t) -> bool:
+    """A CUDA tensor with storage: not a fake one (the dry run's)."""
+    return t.is_cuda and not is_fake(t)
+
+
+def ssd_route(x, dt, A, B, C, axes: MeshAxes) -> str:
+    """``"kernel"`` where :func:`ssd_kernel` computes the scan, else
+    ``"plain"`` (:func:`ssd_chunked_sharded`).  The kernel needs real CUDA
+    operands, no enabled mesh axis and no operand that needs a gradient
+    (it has no backward); the shapes and dtypes it takes are its wrapper's
+    to check."""
+    ops = (x, dt, A, B, C)
+    if axes.enabled or not all(_card_tensor(t) for t in ops):
+        return "plain"
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ops):
+        return "plain"
+    return "kernel"
+
+
+def ssd_kernel(x, dt, A, B, C, chunk: int):
+    """:func:`ssd_chunked`'s function through ``kernels/ssd_scan.py:
+    ssd_scan``, the tail padded as :func:`ssd_chunked` pads it and y cut
+    back.  Returns y: (b, s, h, p) in x's dtype and the final state
+    (b, h, p, n) f32."""
+    s = x.shape[1]
+    q = min(chunk, s)
+    x, dt, B, C = _pad_tail(q, x, dt, B, C)
+    y, state = SSD.ssd_scan(x, dt, A, B, C, q)
+    return y[:, :s], state
+
+
 def ssd_step_sharded(state, x_t, dt_t, A, B_t, C_t, axes: MeshAxes):
     """:func:`ssd_step` on a mesh, on local shards (see
     :func:`ssd_chunked_sharded`); the identity of :func:`ssd_step` without
@@ -233,7 +280,8 @@ def mamba_block(x, p, cfg: ModelConfig, axes: MeshAxes,
     final_state: (ssm_state (B,h,p,n), conv_state (B, w-1, conv_ch), None
     when S < w) so that prefill can hand off to the recurrent decode path.
     ``layer`` (the block's index in its trunk) only labels the block's
-    spans: ``mamba.proj``, ``mamba.ssd``, ``mamba.out``.
+    spans: ``mamba.proj``, ``mamba.ssd`` (with the scan's ``route=``, see
+    :func:`ssd_route`), ``mamba.out``.
     """
     B_, S, _ = x.shape
     cd = cfg.compute_dtype
@@ -258,9 +306,12 @@ def mamba_block(x, p, cfg: ModelConfig, axes: MeshAxes,
     # ssd_dtype="bf16": x/B/C operands in bf16 through the intra-chunk
     # matrix work; decay/statistics stay fp32 inside ssd_chunked
     sdt = f32 if cfg.ssd_dtype == "fp32" else cfg.compute_dtype
-    with obs.span("mamba.ssd", layer=layer, tokens=B_ * S):
-        y, ssm_state = ssd_chunked_sharded(xin.to(sdt), dt, A, Bm.to(sdt),
-                                           Cm.to(sdt), cfg.ssm_chunk, axes)
+    with obs.span("mamba.ssd", layer=layer, tokens=B_ * S) as sp:
+        ops = (xin.to(sdt), dt, A, Bm.to(sdt), Cm.to(sdt))
+        route = ssd_route(*ops, axes)
+        sp.set(route=route)
+        y, ssm_state = (ssd_kernel(*ops, cfg.ssm_chunk) if route == "kernel"
+                        else ssd_chunked_sharded(*ops, cfg.ssm_chunk, axes))
         y = y.to(f32) + (p["D"].to(f32)[:, None] * xin.to(f32))
     with obs.span("mamba.out", layer=layer):
         y = y.to(cd).reshape(B_, S, di)

@@ -32,7 +32,8 @@ chunks or leaves: ``serve.prefill`` (``train/serve.py:make_prefill``,
 ``microbatch=``), ``optim.adamw`` (around ``adamw.apply_update``), and in
 ``models/mamba.py:mamba_block`` ``mamba.proj`` (the in-projections and
 their weight casts), ``mamba.ssd`` (the chunked scan, its operand casts
-and the ``D`` skip; ``tokens=``) and ``mamba.out`` (gate, norm,
+and the ``D`` skip; ``tokens=``, ``route=`` ``"kernel"`` or ``"plain"``,
+see ``models/mamba.py:ssd_route``) and ``mamba.out`` (gate, norm,
 out-projection), each with ``layer=``.  Under activation checkpointing
 the recompute enters the ``mamba.*`` spans again, inside the backward.
 """
