@@ -161,6 +161,47 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class Zamba2Config(ModelConfig):
+    """The released Zamba2 layout (transformers' ``Zamba2Config``;
+    arXiv:2405.16712 eq. 6), built by ``models/transformer.py:Zamba2LM``.
+
+    ``mem_blocks`` shared attention+MLP blocks are applied in turn before
+    the Mamba2 layers at ``hybrid_layer_ids`` (application ``j`` runs block
+    ``j % mem_blocks``).  An application reads ``RMSNorm([h ; e])`` (the
+    residual stream beside the embedding output, ``2 * d_model`` wide,
+    which is what q, k and v project from), gives its MLP's gate/up
+    product a low-rank term of its own (``adapter_rank``) and its output a
+    ``d_model``-square linear of its own; the result enters only the next
+    Mamba2 layer's input, not the residual.  The softmax scale is
+    ``attn_scale_dim ** -0.5``; the Mamba2 layers normalise ``y * SiLU(z)``
+    one of ``ssm_groups`` groups at a time and add a bias after the causal
+    conv.  The positions are a list, so that they compare equal with a
+    JSON list of the same positions.
+    ``ModelConfig``'s own fields stay the reference's, and its families'
+    configs are untouched by these."""
+    hybrid_layer_ids: list = field(default_factory=list)
+    mem_blocks: int = 2
+    adapter_rank: int = 128
+    attn_scale_dim: int = 0
+
+    @property
+    def attn_scale(self) -> float:
+        return self.attn_scale_dim ** -0.5
+
+    def param_count(self) -> int:
+        d, f, r = self.d_model, self.d_ff, self.adapter_rank
+        apps = len(self.hybrid_layer_ids)
+        block = (2 * d * self.q_dim + 2 * 2 * d * self.kv_dim
+                 + self.q_dim * d + 3 * d * f + 3 * d)
+        # the Mamba2 layer's pre-norm and conv bias beside the base count
+        layer = (self._ssm_block_params() + d
+                 + self.d_inner + 2 * self.ssm_groups * self.ssm_state)
+        n = self.vocab_padded * d * (1 if self.tie_embeddings else 2) + d
+        return (n + self.num_layers * layer + self.mem_blocks * block
+                + apps * (d * r + r * 2 * f + d * d))
+
+
+@dataclass(frozen=True)
 class ShapeSpec:
     name: str
     seq_len: int

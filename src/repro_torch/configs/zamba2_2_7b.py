@@ -1,9 +1,12 @@
 """Zamba2-2.7B — Mamba2 backbone + shared attention block [arXiv:2411.15242].
 
 54 Mamba2 layers; one *weight-shared* full attention+MLP block is applied
-every ``attn_every`` SSM layers (9 applications). We keep the weight sharing
-(the defining feature) and omit the per-invocation LoRA deltas of the original
-(noted in DESIGN.md).
+every ``attn_every`` SSM layers (9 applications). This is the JAX
+reference's simplification of the family, which the differential tests
+hold the port to: it keeps the weight sharing and leaves out the released
+model's second block, its per-application LoRA and its attention over
+``[hidden ; embedding]`` (``PERF.md`` §4).  The released layout is
+``configs/zamba2_7b.py`` (``models/transformer.py:Zamba2LM``).
 """
 from repro_torch.configs.base import ModelConfig
 

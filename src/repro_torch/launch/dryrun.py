@@ -94,7 +94,7 @@ from repro_torch.core.uarch import H100_SXM
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import model as MF
 from repro_torch.models.sharding import P, placements
-from repro_torch.models.transformer import FAMILIES, flatten_tree
+from repro_torch.models.transformer import flatten_tree, model_class
 from repro_torch.optim import adamw
 from repro_torch.train.train_loop import make_train_step
 from repro_torch.tree_util import tree_leaves
@@ -179,7 +179,7 @@ def build_cell(arch: str, shape, mesh, variant: str,
     if extra_cfg:
         cfg = cfg.replace(**extra_cfg)
     axes = MF.axes_for(cfg, shape, mesh)
-    model = _shard_params(FAMILIES[cfg.family](cfg, axes, mesh), device_type)
+    model = _shard_params(model_class(cfg)(cfg, axes, mesh), device_type)
     specs = MF.input_pspecs(cfg, shape, axes)
     inputs = {k: local_shard(v.shape, v.dtype, specs[k], mesh, device_type)
               for k, v in MF.input_specs(cfg, shape).items()}

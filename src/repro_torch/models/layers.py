@@ -35,6 +35,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import sharding as SH
 from repro_torch.models.sharding import MeshAxes, P, sc
+from repro_torch.obs import tracer as obs
 
 
 # ---------------------------------------------------------------------------
@@ -277,13 +278,17 @@ def _repeat_kv(k, num_heads: int):
 
 
 def full_attention(q, k, v, cfg: ModelConfig, axes: MeshAxes, *, causal: bool,
-                   q_chunk: int | None = None):
+                   q_chunk: int | None = None, scale: float | None = None):
     """Chunked-query full attention (flash-style blocking in plain ops).
 
     Looping over query chunks bounds peak score memory at
     (B, H, q_chunk, Skv) instead of (B, H, Sq, Skv).  The softmax is taken
     in fp32 over a ``-inf`` causal mask and cast back, as in the reference
-    (no ``F.scaled_dot_product_attention``: its numerics differ).
+    (no ``F.scaled_dot_product_attention``: its numerics differ).  The
+    scores are scaled by ``scale``, ``Dh ** -0.5`` by default.  The scores,
+    softmax and weighted sum run in the ``attn.core`` span (``tokens=``);
+    the ``attn.scores`` counter gives the score elements a call
+    materialises, B·H·Sq·Skv.
 
     On a mesh the reference constrains q, k, v, the scores and the output
     to batch on the batch axes and heads on the model axis; attention is
@@ -297,14 +302,18 @@ def full_attention(q, k, v, cfg: ModelConfig, axes: MeshAxes, *, causal: bool,
     v = _repeat_kv(v, Hq)
     k = sc(k, axes, "batch", None, "model", None)
     v = sc(v, axes, "batch", None, "model", None)
+    scale = Dh**-0.5 if scale is None else scale
+    obs.counter("attn.scores", B * Hq * Sq * k.shape[1])
     if not axes.enabled:
-        return _attend(q, k, v, cfg, causal, q_chunk).reshape(B, Sq,
-                                                               Hq * Dh)
+        with obs.span("attn.core", tokens=B * Sq):
+            out = _attend(q, k, v, cfg, causal, q_chunk, scale)
+        return out.reshape(B, Sq, Hq * Dh)
     spec = P(axes.bspec, None, axes.model, None)
     q = sc(q, axes, *spec)
     ql, kl, vl = (SH.to_region(t, spec) for t in (q, k, v))
-    out = SH.from_region(_attend(ql, kl, vl, cfg, causal, q_chunk),
-                         q.device_mesh, spec, shape=q.shape)
+    with obs.span("attn.core", tokens=B * Sq):
+        out = SH.from_region(_attend(ql, kl, vl, cfg, causal, q_chunk, scale),
+                             q.device_mesh, spec, shape=q.shape)
     if Hq % SH.axis_size(q.device_mesh, axes.model):
         # heads split unevenly: whole heads on every rank before the
         # flatten, which DTensor cannot split by heads; the flatten's
@@ -314,12 +323,12 @@ def full_attention(q, k, v, cfg: ModelConfig, axes: MeshAxes, *, causal: bool,
     return out.reshape(B, Sq, Hq * Dh)
 
 
-def _attend(q, k, v, cfg: ModelConfig, causal: bool, q_chunk):
+def _attend(q, k, v, cfg: ModelConfig, causal: bool, q_chunk, scale: float):
     """The attention of (B, Sq, H, Dh) ``q`` over ``k``/``v`` (B, Skv, H,
-    Dh), whole or one rank's shards; (B, Sq, H, Dh)."""
+    Dh), whole or one rank's shards, its scores scaled by ``scale``;
+    (B, Sq, H, Dh)."""
     B, Sq, Hq, Dh = q.shape
     Skv = k.shape[1]
-    scale = Dh**-0.5
     qc = min(q_chunk or cfg.attn_q_chunk, Sq)
     n_chunks = Sq // qc
     k_idx = torch.arange(Skv, device=q.device)
@@ -341,7 +350,7 @@ def _attend(q, k, v, cfg: ModelConfig, causal: bool, q_chunk):
 
 
 def decode_attention(q, k_cache, v_cache, pos, cfg: ModelConfig,
-                     axes: MeshAxes):
+                     axes: MeshAxes, scale: float | None = None):
     """Single-token attention against a (possibly seq-sharded) KV cache.
 
     q: (B, 1, Hq, Dh); caches: (B, Smax, Hkv, Dh); ``pos``: 0-d int tensor
@@ -354,9 +363,11 @@ def decode_attention(q, k_cache, v_cache, pos, cfg: ModelConfig,
     :func:`_decode_attention_seq`): the softmax statistics and the
     weighted sum reduce over the model axis.  Otherwise kv-heads are
     sharded and attention is local: on a mesh it runs on each rank's
-    heads (as :func:`full_attention` does).
+    heads (as :func:`full_attention` does).  The scores are scaled by
+    ``scale``, ``Dh ** -0.5`` by default.
     """
     B, _, Hq, Dh = q.shape
+    scale = Dh**-0.5 if scale is None else scale
     if axes.kv_partition == "seq":
         cache_spec = ("batch", "model", None, None)
     else:
@@ -364,26 +375,26 @@ def decode_attention(q, k_cache, v_cache, pos, cfg: ModelConfig,
     k_cache = sc(k_cache, axes, *cache_spec)
     v_cache = sc(v_cache, axes, *cache_spec)
     if not axes.enabled:
-        return _decode_attend(q, k_cache, v_cache, pos).reshape(B, 1,
-                                                                Hq * Dh)
+        return _decode_attend(q, k_cache, v_cache, pos, scale).reshape(
+            B, 1, Hq * Dh)
     if axes.kv_partition == "seq" and axes.model:
-        return _decode_attention_seq(q, k_cache, v_cache, pos, axes)
+        return _decode_attention_seq(q, k_cache, v_cache, pos, axes, scale)
     spec = P(axes.bspec, None, axes.model, None)
     q = sc(q, axes, *spec)
     ql, kl, vl = (SH.to_region(t, spec) for t in (q, k_cache, v_cache))
-    out = SH.from_region(_decode_attend(ql, kl, vl, pos), q.device_mesh,
-                         spec, shape=q.shape)
+    out = SH.from_region(_decode_attend(ql, kl, vl, pos, scale),
+                         q.device_mesh, spec, shape=q.shape)
     return out.reshape(B, 1, Hq * Dh)
 
 
-def _decode_attend(q, k_cache, v_cache, pos):
+def _decode_attend(q, k_cache, v_cache, pos, scale: float):
     """Grouped single-token attention, whole or one rank's heads; (B, 1,
     Hq, Dh)."""
     B, _, Hq, Dh = q.shape
     Smax, Hkv = k_cache.shape[1], k_cache.shape[2]
     group = Hq // Hkv
     qg = q.reshape(B, Hkv, group, Dh)
-    s = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache) * (Dh**-0.5)
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache) * scale
     valid = (torch.arange(Smax, device=q.device) < _local(pos))
     s = s.to(torch.float32).masked_fill(~valid[None, None, None, :],
                                         float("-inf"))
@@ -397,7 +408,8 @@ def _local(x):
     return x.to_local() if isinstance(x, DTensor) else x
 
 
-def _decode_attention_seq(q, k_cache, v_cache, pos, axes: MeshAxes):
+def _decode_attention_seq(q, k_cache, v_cache, pos, axes: MeshAxes,
+                          scale: float):
     """Flash-decoding over a cache whose sequence is sharded on the model
     axis (what GSPMD makes of the reference's constraints), on local
     shards: each model rank scores its positions, the maximum and the
@@ -415,7 +427,7 @@ def _decode_attention_seq(q, k_cache, v_cache, pos, axes: MeshAxes):
     s_loc = kl.shape[1]
     first = mesh.get_local_rank(axes.model) * s_loc
     qg = ql.reshape(ql.shape[0], Hkv, Hq // Hkv, Dh)
-    s = torch.einsum("bhgd,bkhd->bhgk", qg, kl) * (Dh**-0.5)
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, kl) * scale
     valid = (first + torch.arange(s_loc, device=s.device)) < _local(pos)
     s = s.to(torch.float32).masked_fill(~valid[None, None, None, :],
                                         float("-inf"))
@@ -484,6 +496,19 @@ def _tp_out(x, name: str, cfg: ModelConfig):
     if cfg.remat == "tp_out" and torch.is_grad_enabled() and x.requires_grad:
         return checkpoint_name(x, name)
     return x
+
+
+def gated_gelu_mlp(x, p, cfg: ModelConfig, adapter=None):
+    """The released Zamba2's MLP: ``gate_up = x @ w_gate_up``, plus the
+    low-rank ``(x @ lora_a) @ lora_b`` of ``adapter`` (one application's),
+    then ``(GELU(gate) * up) @ w_down`` with the exact (erf) GELU.  Runs
+    unsharded (``models/transformer.py:Zamba2LM``)."""
+    cd = cfg.compute_dtype
+    gu = x @ p["w_gate_up"].to(cd)
+    if adapter is not None:
+        gu = gu + (x @ adapter["lora_a"].to(cd)) @ adapter["lora_b"].to(cd)
+    gate, up = gu.chunk(2, dim=-1)
+    return (F.gelu(gate) * up) @ p["w_down"].to(cd)
 
 
 def mlp_block(x, p, cfg: ModelConfig, axes: MeshAxes):

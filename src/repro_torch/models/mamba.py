@@ -273,8 +273,27 @@ def _project(x, p, cfg: ModelConfig, axes: MeshAxes):
     return z, xin, Bp, Cp, dt_raw
 
 
+def _gated_norm(y, z, w, eps: float, groups: int):
+    """``rms_norm(y * SiLU(z))`` over the whole of the last dimension, or
+    over each of its ``groups`` equal parts (``RMSNormGated(group_size=
+    d_inner // groups)``) where ``groups`` > 1."""
+    y = y * F.silu(z)
+    if groups == 1:
+        return rms_norm(y, w, eps)
+    shape = y.shape
+    return rms_norm(y.reshape(*shape[:-1], groups, -1),
+                    w.reshape(groups, -1), eps).reshape(shape)
+
+
+def _conv_bias(xbc, p, cd):
+    """The causal conv's output plus its bias, where the block has one
+    (``conv_bias``: the released Zamba2's layers)."""
+    return xbc + p["conv_bias"].to(cd) if "conv_bias" in p else xbc
+
+
 def mamba_block(x, p, cfg: ModelConfig, axes: MeshAxes,
-                layer: int | None = None):
+                layer: int | None = None, *, inject=None,
+                norm_groups: int = 1):
     """Prefill Mamba2 block: (B, S, D) -> ((B, S, D), final_state).
 
     final_state: (ssm_state (B,h,p,n), conv_state (B, w-1, conv_ch), None
@@ -282,6 +301,12 @@ def mamba_block(x, p, cfg: ModelConfig, axes: MeshAxes,
     ``layer`` (the block's index in its trunk) only labels the block's
     spans: ``mamba.proj``, ``mamba.ssd`` (with the scan's ``route=``, see
     :func:`ssd_route`), ``mamba.out``.
+
+    The released Zamba2's layers (``Zamba2LM``) use three options, each
+    off by default: ``inject`` (B, S, D) is added to the block's input
+    before its norm but not to its residual; the gated norm runs over
+    ``norm_groups`` groups of ``d_inner``; a ``conv_bias`` leaf in ``p``
+    is added after the causal conv.
     """
     B_, S, _ = x.shape
     cd = cfg.compute_dtype
@@ -289,13 +314,15 @@ def mamba_block(x, p, cfg: ModelConfig, axes: MeshAxes,
     g, n, hh, pp, w = (cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads,
                        cfg.ssm_headdim, cfg.ssm_conv)
     res = x
+    if inject is not None:
+        x = x + inject
     x = rms_norm(x, p["ln"], cfg.norm_eps)
     with obs.span("mamba.proj", layer=layer):
         z, xin, Bp, Cp, dt_raw = _project(x, p, cfg, axes)
     xbc = torch.cat([xin, Bp, Cp], dim=-1)
     xbc = sc(xbc, axes, "batch", None, "model")
     conv_state = xbc[:, S - (w - 1):, :] if S >= w else None
-    xbc = F.silu(causal_conv1d(xbc, p["conv"].to(cd)))
+    xbc = F.silu(_conv_bias(causal_conv1d(xbc, p["conv"].to(cd)), p, cd))
     di = cfg.d_inner
     xin = xbc[..., :di].reshape(B_, S, hh, pp)
     Bm = xbc[..., di:di + g * n].reshape(B_, S, g, n)
@@ -315,14 +342,17 @@ def mamba_block(x, p, cfg: ModelConfig, axes: MeshAxes,
         y = y.to(f32) + (p["D"].to(f32)[:, None] * xin.to(f32))
     with obs.span("mamba.out", layer=layer):
         y = y.to(cd).reshape(B_, S, di)
-        y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
+        y = _gated_norm(y, z, p["norm"], cfg.norm_eps, norm_groups)
         out = y @ p["out"].to(cd)
     return (res + sc(out, axes, "batch", None, None),
             (ssm_state.to(cd), conv_state))
 
 
-def mamba_block_decode(x, p, cfg: ModelConfig, axes: MeshAxes, state):
-    """Single-token Mamba2 step. x: (B, 1, D); state: (ssm, conv)."""
+def mamba_block_decode(x, p, cfg: ModelConfig, axes: MeshAxes, state, *,
+                       inject=None, norm_groups: int = 1):
+    """Single-token Mamba2 step. x: (B, 1, D); state: (ssm, conv).
+    ``inject``, ``norm_groups`` and a ``conv_bias`` leaf as in
+    :func:`mamba_block`."""
     ssm_state, conv_state = state  # (B,h,p,n), (B, w-1, conv_ch)
     B_ = x.shape[0]
     cd = cfg.compute_dtype
@@ -330,12 +360,14 @@ def mamba_block_decode(x, p, cfg: ModelConfig, axes: MeshAxes, state):
     g, n, hh, pp = (cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads,
                     cfg.ssm_headdim)
     res = x
+    if inject is not None:
+        x = x + inject
     x = rms_norm(x, p["ln"], cfg.norm_eps)
     z, xin, Bp, Cp, dt_raw = _project(x[:, 0], p, cfg, axes)
     xbc_t = torch.cat([xin, Bp, Cp], dim=-1)  # (B, conv_ch)
     window = torch.cat([conv_state, xbc_t[:, None, :]], dim=1)  # (B,w,ch)
     conv_out = torch.einsum("bwc,wc->bc", window, p["conv"].to(cd))
-    conv_out = F.silu(conv_out)
+    conv_out = F.silu(_conv_bias(conv_out, p, cd))
     new_conv_state = window[:, 1:, :]
     di = cfg.d_inner
     x_t = conv_out[:, :di].reshape(B_, hh, pp)
@@ -347,7 +379,7 @@ def mamba_block_decode(x, p, cfg: ModelConfig, axes: MeshAxes, state):
                                   B_t.to(f32), C_t.to(f32), axes)
     y = y + p["D"].to(f32)[:, None] * x_t.to(f32)
     y = y.to(cd).reshape(B_, di)
-    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
+    y = _gated_norm(y, z, p["norm"], cfg.norm_eps, norm_groups)
     out = (y @ p["out"].to(cd))[:, None, :]
     return res + out, (new_ssm.to(cd), new_conv_state)
 

@@ -47,12 +47,13 @@ from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.configs.base import ModelConfig, ShapeSpec
+from repro_torch.configs.base import ModelConfig, ShapeSpec, Zamba2Config
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import moe as MOE
 from repro_torch.models import sharding as SH
 from repro_torch.models.sharding import SINGLE, MeshAxes, P, sc
+from repro_torch.obs import tracer as obs
 
 # products with no batch dimension (``x @ w`` reaches ``aten.mm``; the
 # attention's batched einsums reach ``aten.bmm``)
@@ -695,15 +696,20 @@ class MambaLM(BaseLM):
 
 
 # ---------------------------------------------------------------------------
-# Hybrid (zamba2): Mamba2 trunk + one weight-shared attention block
+# Hybrid (zamba2): Mamba2 trunk + weight-shared attention blocks
 # ---------------------------------------------------------------------------
 
 
 class HybridLM(BaseLM):
-    """``num_layers`` Mamba2 blocks; after every ``attn_every`` of them the
-    *same* (weight-shared) transformer block runs. Params for the SSM trunk
-    are stacked (n_super, attn_every, ...) for a two-level loop; the shared
-    block's KV cache has one entry a super-block."""
+    """The hybrid family as the JAX reference simplifies it (a plain
+    ``ModelConfig``, e.g. ``configs/zamba2_2_7b.py``): ``num_layers``
+    Mamba2 blocks; after every ``attn_every`` of them the *same*
+    (weight-shared) pre-norm transformer block runs on the residual stream,
+    with no LoRA.  Params for the SSM trunk are stacked (n_super,
+    attn_every, ...) for a two-level loop; the shared block's KV cache has
+    one entry a super-block.  The released Zamba2 layout (a
+    ``Zamba2Config``, e.g. ``configs/zamba2_7b.py``) is :class:`Zamba2LM`,
+    which keeps this class's ``loss`` and ``prefill``."""
 
     @property
     def n_super(self) -> int:
@@ -806,6 +812,172 @@ class HybridLM(BaseLM):
                                dtype=s.dtype, device="meta")
         return {"ssm": re(ssm), "conv": re(conv),
                 "kv": self.kv_cache_specs(self.n_super, batch, seq_len),
+                "pos": torch.empty((), dtype=torch.int32, device="meta")}
+
+
+class Zamba2LM(HybridLM):
+    """The released Zamba2 (transformers' ``modeling_zamba2.py``; arXiv:
+    2405.16712 eq. 6) for a :class:`~repro_torch.configs.base.Zamba2Config`.
+    With ``e`` the embedding output and application ``j`` before layer
+    ``i`` of ``hybrid_layer_ids``::
+
+        u = RMSNorm_2d([h ; e])          # block b = j % mem_blocks
+        a = Attn_b(u)                    # q, k, v from 2d; attn_scale
+        m = MLP_b(RMSNorm_d(a))          # GELU-gated, LoRA_j on gate/up
+        t = m @ linear_j
+        h = h + Mamba_i(RMSNorm(h + t))  # t enters the mixer only
+
+    and ``h = h + Mamba_i(RMSNorm(h))`` at every other layer; the Mamba2
+    layers' gated norm runs over ``ssm_groups`` groups and their conv has a
+    bias.  Parameters: ``layers.*`` the Mamba2 layers stacked (L, ...),
+    ``shared.*`` the blocks stacked (mem_blocks, ...), ``apps.*``
+    (``lora_a``, ``lora_b``, ``linear``) stacked over the applications;
+    a block's gradient sums over its applications.  Training runs each
+    application and each Mamba2 layer in a remat region of its own.  The
+    prefill state is the layers' ``ssm``/``conv`` and one KV entry an
+    application.  Runs unsharded: an enabled ``MeshAxes`` raises."""
+
+    def __init__(self, cfg: Zamba2Config, axes: MeshAxes | None = None,
+                 mesh=None):
+        if axes is not None and axes.enabled:
+            raise NotImplementedError("the released Zamba2 layout runs "
+                                      "unsharded")
+        super().__init__(cfg, axes, mesh)
+
+    @staticmethod
+    def init_tree(cfg: Zamba2Config, gen) -> dict:
+        ids, nl = cfg.hybrid_layer_ids, cfg.num_layers
+        if list(ids) != sorted(set(ids)) or (ids and not 0 <= ids[0] <=
+                                               ids[-1] < nl):
+            raise ValueError(f"hybrid_layer_ids {ids} are not increasing "
+                             f"layers of {nl}")
+        d, f, r, nb = cfg.d_model, cfg.d_ff, cfg.adapter_rank, cfg.mem_blocks
+        dt = cfg.param_dtype
+        p = BaseLM._embed_tree(cfg, gen)
+        p["layers"] = M.mamba_params(gen, cfg, nl)
+        conv_ch = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+        p["layers"]["conv_bias"] = L.full(gen, (nl, conv_ch), 0.0, dt)
+        p["shared"] = {
+            "ln1": L.full(gen, (nb, 2 * d), 1.0, dt),
+            "attn": {
+                "wq": L.dense_init(gen, (nb, 2 * d, cfg.q_dim), dtype=dt),
+                "wk": L.dense_init(gen, (nb, 2 * d, cfg.kv_dim), dtype=dt),
+                "wv": L.dense_init(gen, (nb, 2 * d, cfg.kv_dim), dtype=dt),
+                "wo": L.dense_init(gen, (nb, cfg.q_dim, d), dtype=dt)},
+            "ln2": L.full(gen, (nb, d), 1.0, dt),
+            "mlp": {"w_gate_up": L.dense_init(gen, (nb, d, 2 * f), dtype=dt),
+                    "w_down": L.dense_init(gen, (nb, f, d), dtype=dt)},
+        }
+        na = len(ids)
+        p["apps"] = {"lora_a": L.dense_init(gen, (na, d, r), dtype=dt),
+                     "lora_b": L.dense_init(gen, (na, r, 2 * f), dtype=dt),
+                     "linear": L.dense_init(gen, (na, d, d), dtype=dt)}
+        return p
+
+    @property
+    def n_apps(self) -> int:
+        return len(self.cfg.hybrid_layer_ids)
+
+    def _shared_qkv(self, h, e, bp, angles):
+        """An application's q, k, v: from ``RMSNorm([h ; e])``."""
+        cfg = self.cfg
+        u = L.rms_norm(torch.cat([h, e], dim=-1), bp["ln1"], cfg.norm_eps)
+        return L.project_qkv(u, bp["attn"], cfg, self.axes, angles)
+
+    def _shared_out(self, o, bp, ap):
+        """An application's output ``t`` from its attention's ``o``: the
+        out-projection, the block's MLP with the application's LoRA, the
+        application's linear."""
+        cfg = self.cfg
+        cd = cfg.compute_dtype
+        a = o @ bp["attn"]["wo"].to(cd)
+        m = L.gated_gelu_mlp(L.rms_norm(a, bp["ln2"], cfg.norm_eps),
+                             bp["mlp"], cfg, ap)
+        return m @ ap["linear"].to(cd)
+
+    def _shared(self, h, e, bp, ap, angles, layer: int, block: int):
+        """One application over a whole sequence: (t, k, v)."""
+        with obs.span("hybrid.shared", layer=layer, block=block,
+                      tokens=h.shape[0] * h.shape[1]):
+            q, k, v = self._shared_qkv(h, e, bp, angles)
+            o = L.full_attention(q, k, v, self.cfg, self.axes, causal=True,
+                                 scale=self.cfg.attn_scale)
+            return self._shared_out(o, bp, ap), k, v
+
+    def _mamba(self, h, lp, t, layer: int):
+        return M.mamba_block(h, lp, self.cfg, self.axes, layer, inject=t,
+                             norm_groups=self.cfg.ssm_groups)
+
+    def _trunk(self, h, angles, collect: bool = False):
+        """(h, None), or with ``collect`` (h, ((ssm, conv), k, v)): the
+        layers' states stacked (L, ...) and the applications' k/v (J, B,
+        S, H, Dh)."""
+        cfg = self.cfg
+        at = {i: j for j, i in enumerate(cfg.hybrid_layer_ids)}
+        blocks = L.tree_unbind(self["shared"], cfg.mem_blocks)
+        apps = L.tree_unbind(self["apps"], self.n_apps)
+        shared = self._shared if collect else _remat(self._shared, cfg)
+        mamba = self._mamba if collect else _remat(self._mamba, cfg)
+        e, kvs = h, []
+
+        def body(x, lp, i):
+            t = None
+            if i in at:
+                j = at[i]
+                b = j % cfg.mem_blocks
+                t, k, v = shared(x, e, blocks[b], apps[j], angles, i, b)
+                if collect:
+                    kvs.append((k, v))
+            x, st = mamba(x, lp, t, i)
+            return x, (st if collect else None)
+
+        h, states = L.xscan(cfg, body, h, self["layers"], index=True)
+        if not collect:
+            return h, None
+        return h, (states, *(torch.stack(t) for t in zip(*kvs)))
+
+    def decode_step(self, state, tokens):
+        state, tokens = self._decode_inputs(state, tokens)
+        cfg = self.cfg
+        h = self._embed(tokens[:, None])
+        e = h
+        pos = state["pos"]
+        write_pos = torch.clamp(pos, max=state["kv"]["k"].shape[2] - 1)
+        angles = self._decode_angles(h.shape[0], pos)
+        at = {i: j for j, i in enumerate(cfg.hybrid_layer_ids)}
+        blocks = L.tree_unbind(self["shared"], cfg.mem_blocks)
+        apps = L.tree_unbind(self["apps"], self.n_apps)
+        ck, cv = state["kv"]["k"].clone(), state["kv"]["v"].clone()
+
+        def body(x, inp, i):
+            lp, ssm, conv = inp
+            t = None
+            if i in at:
+                j = at[i]
+                b = j % cfg.mem_blocks
+                with obs.span("hybrid.shared", layer=i, block=b,
+                              tokens=x.shape[0]):
+                    q, k, v = self._shared_qkv(x, e, blocks[b], angles)
+                    kc = L.cache_write(ck[j], k, write_pos)
+                    vc = L.cache_write(cv[j], v, write_pos)
+                    o = L.decode_attention(q, kc, vc, write_pos + 1, cfg,
+                                           self.axes, scale=cfg.attn_scale)
+                    t = self._shared_out(o, blocks[b], apps[j])
+            return M.mamba_block_decode(x, lp, cfg, self.axes, (ssm, conv),
+                                        inject=t,
+                                        norm_groups=self.cfg.ssm_groups)
+
+        h, (ssm, conv) = L.xscan(
+            cfg, body, h, (self["layers"], state["ssm"], state["conv"]),
+            index=True)
+        logits = self._logits(h[:, 0])
+        return logits, {"ssm": ssm, "conv": conv, "kv": {"k": ck, "v": cv},
+                        "pos": pos + 1}
+
+    def decode_state_specs(self, batch: int, seq_len: int):
+        ssm, conv = M.mamba_state_specs(self.cfg, batch, self.cfg.num_layers)
+        return {"ssm": ssm, "conv": conv,
+                "kv": self.kv_cache_specs(self.n_apps, batch, seq_len),
                 "pos": torch.empty((), dtype=torch.int32, device="meta")}
 
 
@@ -953,6 +1125,13 @@ FAMILIES = {
 }
 
 
+def model_class(cfg: ModelConfig):
+    """The model class of ``cfg``: its family's, and for the hybrid family
+    :class:`Zamba2LM` where ``cfg`` is the released layout's
+    ``Zamba2Config``."""
+    return Zamba2LM if isinstance(cfg, Zamba2Config) else FAMILIES[cfg.family]
+
+
 def build_model(cfg: ModelConfig, axes: MeshAxes | None = None, mesh=None,
                 *, device="cuda"):
     """The family's model with its parameters allocated, not drawn, on
@@ -961,7 +1140,7 @@ def build_model(cfg: ModelConfig, axes: MeshAxes | None = None, mesh=None,
     enabled ``axes`` the parameters are DTensors on ``mesh``, placed by
     ``model.param_pspecs`` (``device`` must be of the mesh's device
     type)."""
-    model = FAMILIES[cfg.family](cfg, axes, mesh)
+    model = model_class(cfg)(cfg, axes, mesh)
     if torch.device(device).type == "meta":
         return model
     if model.axes.enabled and torch.device(device).type != mesh.device_type:

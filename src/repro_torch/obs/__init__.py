@@ -34,8 +34,15 @@ chunks or leaves: ``serve.prefill`` (``train/serve.py:make_prefill``,
 their weight casts), ``mamba.ssd`` (the chunked scan, its operand casts
 and the ``D`` skip; ``tokens=``, ``route=`` ``"kernel"`` or ``"plain"``,
 see ``models/mamba.py:ssd_route``) and ``mamba.out`` (gate, norm,
-out-projection), each with ``layer=``.  Under activation checkpointing
-the recompute enters the ``mamba.*`` spans again, inside the backward.
+out-projection), each with ``layer=``; in the released Zamba2
+(``models/transformer.py:Zamba2LM``) ``hybrid.shared`` around each
+application of a shared block, from the concatenation to the
+application's linear (``layer=``, ``block=``, ``tokens=``), and in
+``models/layers.py:full_attention`` ``attn.core`` (the scores, softmax
+and weighted sum, ``tokens=``) with the counter ``attn.scores`` (the score
+elements a call materialises, B·H·Sq·Skv).  Under activation
+checkpointing the recompute enters the ``mamba.*``, ``hybrid.shared`` and
+``attn.core`` spans again, inside the backward.
 """
 from repro_torch.obs.tracer import (NULL_SPAN, Tracer, counter, enabled,
                                           get_tracer, instant, set_tracer, span,
